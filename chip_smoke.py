@@ -1,0 +1,322 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing its elapsed seconds:
+
+1. the card (``nvidia-smi``) and the build of the CUDA kernels (one
+   ``nvcc`` call over ``epidemicsimulator_tpu_torch/csrc/*.cu``);
+2. each kernel against its plain torch version on the card, at the main
+   path's shapes (N = 3,457,142), on inputs made from a numpy seed, with
+   its time, the plain version's time and its memory bound;
+3. the main path: the synthetic Yorkshire & Humber world (3,457,142
+   citizens, 15,669 OAs, seed 0), ``init_state(seed=0,
+   starting_infected=20_000)``, ``Params.covid()``, two chunks of 250
+   steps, with each kernel's launches in that run;
+4. the port on the card against the port's plain path on the CPU, on a
+   small world in the deterministic regime, bitwise.
+
+The last two lines are the card's name and power limit and
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and so
+does a machine with no CUDA device.  Imports nothing of JAX.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+N_CITIZENS = 3_457_142
+N_OAS = 15_669
+CHUNK = 250
+H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
+H100_INT32_OPS_PER_S = 33.5e12  # non-tensor INT32, H100 SXM data sheet
+T0 = time.perf_counter()
+
+
+def say(msg):
+    print(f"[{time.perf_counter() - T0:8.2f}s] {msg}", flush=True)
+
+
+def cuda_ms(fn, reps=20):
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(bytes_moved, int_ops):
+    """The least time for the work: bytes (each input read once, each
+    output written once) over the memory rate, or integer operations
+    (estimated per element from the kernel source) over the INT32 rate,
+    whichever is longer."""
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = int_ops / H100_INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def random_runs(rng, n, avg_run, within=None):
+    """Start/end masks of a random partition of [0, n) into runs; with
+    ``within``, every boundary of that partition is kept too."""
+    import numpy as np
+
+    start = rng.random(n) < 1.0 / avg_run
+    start[0] = True
+    if within is not None:
+        start |= within
+    end = np.empty(n, bool)
+    end[:-1] = start[1:]
+    end[-1] = True
+    return start, end
+
+
+def check_kernels(world_dev, rng):
+    """Phase 2: each kernel against its plain version at the main path's
+    shapes.  Returns the per-kernel records (launches filled in later)."""
+    import numpy as np
+    import torch
+
+    from epidemicsimulator_tpu_torch.ops import citizen, scans
+
+    n = world_dev.n_citizens
+    dev = world_dev.work_perm.device
+    records = []
+
+    # B3: the int8 cumsum, on a 0/1 lane
+    v = torch.from_numpy((rng.random(n) < 0.3).astype(np.int8)).to(dev)
+    got, want = scans.cumsum_i8(v), scans.cumsum_i8_plain(v)
+    if not torch.equal(got, want):
+        raise AssertionError("cumsum_i8 disagrees with its plain version")
+    t_b, by = bound(n * (1 + 4), 2 * n)
+    records.append(dict(
+        name="cumsum_i8", route="cuda",
+        source="epidemicsimulator_tpu_torch/csrc/scans.cu",
+        replaces="epidemicsimulator_tpu/ops/pallas_scans.py:316",
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: scans.cumsum_i8(v)),
+        plain_ms=cuda_ms(lambda: scans.cumsum_i8_plain(v)),
+        bound_ms=t_b, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.cumsum(v, 0, dtype=torch.int32)),
+    ))
+    say("B3 cumsum_i8: bitwise equal to its plain version")
+
+    # B2: building and room run totals over the contributor lane, on the
+    # world's own work-order boundary masks and on random nested runs
+    sets_world = [
+        (world_dev.ws_wb_start_mask, world_dev.ws_wb_end_mask),
+        (world_dev.ws_room_start_mask, world_dev.ws_room_end_mask),
+    ]
+    coarse = random_runs(rng, n, 60)
+    fine = random_runs(rng, n, 9, within=coarse[0])
+    sets_rand = [tuple(torch.from_numpy(m).to(dev) for m in coarse),
+                 tuple(torch.from_numpy(m).to(dev) for m in fine)]
+    for sets in (sets_world, sets_rand, sets_rand[1:]):
+        got = scans.run_totals_fused(v, sets)
+        want = scans.run_totals_fused_plain(v, sets)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("run_totals_fused disagrees with its plain version")
+    t_b, by = bound(n * (1 + 2 * 2 + 4 * 2), 2 * 10 * n)
+    records.append(dict(
+        name="run_totals_fused", route="cuda",
+        source="epidemicsimulator_tpu_torch/csrc/scans.cu",
+        replaces="epidemicsimulator_tpu/ops/pallas_scans.py:339",
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: scans.run_totals_fused(v, sets_world)),
+        plain_ms=cuda_ms(lambda: scans.run_totals_fused_plain(v, sets_world)),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+    ))
+    say("B2 run_totals_fused: bitwise equal to its plain version "
+        "(world masks, random nested runs, one set)")
+
+    # B1: the citizen phase on the world's statics and a random state
+    statics = citizen.make_citizen_statics(world_dev)
+    status = torch.from_numpy(rng.choice(
+        5, n, p=[0.80, 0.05, 0.05, 0.05, 0.05]).astype(np.int8)).to(dev)
+    timer = torch.from_numpy(rng.integers(0, 400, n).astype(np.int32)).to(dev)
+    sched = torch.from_numpy(rng.integers(0, 32, n).astype(np.int8)).to(dev)
+    f32 = np.float32
+    worst_ulp, hit_flips, max_err = 0, 0, 0.0
+    for h24, move, mask_status, p0 in (
+        (8, True, 2, 0.00055), (12, True, 0, 0.05), (17, False, 1, 0.3),
+    ):
+        kw = dict(h24=h24, move=move, mask_status=mask_status,
+                  seed=int(rng.integers(0, 2**32)), exposed_time=96,
+                  infected_time=336, exposure_chance=f32(p0),
+                  mask_scale=f32(1.0) - f32(0.7),
+                  K=world_dev.max_household_size, ref_mask_sem=True,
+                  u8_trunc=True, want_q=True)
+        got = citizen.citizen_phase(statics, status, timer, sched, **kw)
+        want = citizen.citizen_phase_plain(statics, status, timer, sched, **kw)
+        q_got, q_want = got[5], want[5]
+        same_q = (q_got == q_want) | (torch.isnan(q_got) & torch.isnan(q_want))
+        ulp = torch.where(same_q, 0, (q_got.view(torch.int32).long()
+                                      - q_want.view(torch.int32).long()).abs())
+        worst_ulp = max(worst_ulp, int(ulp.max()))
+        max_err = max(max_err, float(torch.where(
+            same_q, 0.0, (q_got - q_want).abs()).max()))
+        flip = ((got[3] & 4) != 0) != ((want[3] & 4) != 0)
+        hit_flips += int(flip.sum())
+        # q within 2 ulp (CUDA's expf bound); a home hit may differ only
+        # where q differs, by at most 1 ulp
+        if worst_ulp > 2 or bool((flip & (ulp != 1)).any()):
+            raise AssertionError(
+                f"citizen_phase: q differs by {worst_ulp} ulp, or a home hit "
+                f"differs where q does not differ by exactly 1 ulp")
+        keep = ~flip
+        for a, b, name in zip(got[:4], want[:4],
+                              ("status", "timer", "sched", "gates")):
+            if not torch.equal(a[keep], b[keep]):
+                raise AssertionError(f"citizen_phase: {name} disagrees")
+        if not torch.equal(got[4][:7], want[4][:7]) or (
+                int((got[4][7] - want[4][7]).abs()) > int(flip.sum())):
+            raise AssertionError("citizen_phase: census disagrees")
+    say(f"B1 citizen_phase: lanes and census equal to its plain version; "
+        f"q differs by at most {worst_ulp} ulp (max abs {max_err:.3e}); "
+        f"home hits that differ by a 1-ulp q: {hit_flips}")
+    kw.update(want_q=False)
+    t_b, by = bound(n * (1 + 4 + 1 + 5 + 1 + 4 + 1 + 1), 150 * n)
+    records.append(dict(
+        name="citizen_phase", route="cuda",
+        source="epidemicsimulator_tpu_torch/csrc/citizen.cu",
+        replaces="epidemicsimulator_tpu/ops/pallas_citizen.py:367",
+        max_abs_err=max_err,
+        ms=cuda_ms(lambda: citizen.citizen_phase(statics, status, timer,
+                                                 sched, **kw)),
+        plain_ms=cuda_ms(lambda: citizen.citizen_phase_plain(
+            statics, status, timer, sched, **kw)),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+    ))
+    return records
+
+
+def main_path(et, world_dev, card):
+    """Phase 3: two chunks of the bench's run, counting launches."""
+    import torch
+
+    state = et.init_state(world_dev, seed=0, starting_infected=20_000)
+    cfg = et.SimConfig(max_steps=2 * CHUNK, chunk_size=CHUNK)
+    params = et.Params.covid()
+    chunk = et.make_chunk_runner(world_dev, cfg)
+    n = world_dev.n_citizens
+    torch.cuda.synchronize()
+    et.reset_launches()
+    for c in range(2):
+        t = time.perf_counter()
+        state, out = chunk(params, state)
+        seirv = out.seirv.cpu()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if not bool((seirv.sum(1) == n).all()):
+            raise AssertionError("a SEIRV row does not sum to N")
+        oa = out.exposures_per_oa
+        if oa.shape != (CHUNK, world_dev.n_output_areas) or int(oa.min()) < 0:
+            raise AssertionError("per-OA series has the wrong shape or sign")
+        say(f"chunk {c + 1}: SEIRV after step {state.hour} = "
+            f"{seirv[-1].tolist()}; {dt * 1e3 / CHUNK:.3f} ms/step; "
+            f"lockdown={state.lockdown} mask={state.mask_status} "
+            f"vaccinated this chunk={int(out.n_vaccinated_now.sum())}")
+        if c == 0 and not all(int(x) > 0 for x in seirv[-1][[0, 1, 2, 4]]):
+            raise AssertionError("S, E, I and V must all be live after chunk 1")
+    counts = dict(et.launches)
+    say(f"second chunk {dt * 1e3 / CHUNK:.3f} ms/step on {card}; "
+        f"launches in the main path: {counts}")
+    if not all(counts.values()):
+        raise AssertionError("a kernel of the main path was never launched")
+    return counts
+
+
+def small_reference(et):
+    """Phase 4: the card against the plain path on the CPU, deterministic
+    regime (every draw probability 0, 1 or NaN), 3000 citizens, 60 steps."""
+    import numpy as np
+    import torch
+
+    base = et.Params.covid()
+    params = et.Params(
+        dataclasses.replace(base.disease, exposure_chance=1.0, exposed_time=6,
+                            infected_time=12, vaccination_rate=25),
+        dataclasses.replace(base.thresholds, lockdown=0.35, vaccination=0.05,
+                            mask_public_transport=2.0, mask_everywhere=2.0),
+    )
+    cfg = et.SimConfig(max_steps=60, chunk_size=60)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        world = et.generate_synthetic_world(3000, n_output_areas=6, seed=4).to(device)
+        state = et.init_state(world, seed=0, starting_infected=10, device=device)
+        state, out = et.make_chunk_runner(world, cfg)(params, state)
+        runs[device] = (state.status.cpu(), out.seirv.cpu(),
+                        out.exposures_per_oa.cpu())
+    for a, b in zip(*runs.values()):
+        if not torch.equal(a, b):
+            raise AssertionError("card and CPU disagree on the small world")
+    final = runs["cpu"][1][-1].tolist()
+    if final[3] == 0 or not np.isfinite(runs["cpu"][1].numpy()).all():
+        raise AssertionError("the small epidemic did not run")
+    say(f"small world, 60 steps: card == CPU plain path bitwise; "
+        f"final SEIRV {final}")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    import epidemicsimulator_tpu_torch as et
+    from epidemicsimulator_tpu_torch import runtime
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    say(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t = time.perf_counter()
+    path, log = runtime.build(extra_flags=("-Xptxas", "-v"))
+    say(f"built {os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.2f}s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    t = time.perf_counter()
+    world = et.generate_synthetic_world(N_CITIZENS, n_output_areas=N_OAS, seed=0)
+    world_dev = world.to("cuda")
+    say(f"world built in {time.perf_counter() - t:.2f}s: {world.n_citizens:,} "
+        f"citizens, {world.n_riders:,} riders, {world.n_output_areas:,} OAs")
+    records = check_kernels(world_dev, np.random.default_rng(1234))
+    torch.cuda.synchronize()
+    say("phase 2 done")
+
+    counts = main_path(et, world_dev, smi)
+    for rec in records:
+        rec["launches"] = counts[rec["name"]]
+    small_reference(et)
+
+    print(json.dumps({"kernels": records}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,114 @@
+"""Constants and parameters of the epidemic model, for the PyTorch port.
+
+A copy of the parts of ``epidemicsimulator_tpu/config.py`` that the fused
+main path reads.  Parameters are plain dataclasses of Python numbers; the
+step turns them into float32/int32 values exactly where the JAX package
+does, so both packages compute with the same bits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+# Static structural constants (the reference's sim/src/config.rs).
+STARTING_INFECTED_COUNT = 10
+HOUSEHOLD_SIZE = 4
+MIN_WORKPLACE_OCCUPANT_COUNT = 20
+PUBLIC_TRANSPORT_PERCENTAGE = 0.2
+BUS_CAPACITY = 20
+MAX_STUDENT_AGE = 18
+MINIMUM_FLOOR_SPACE_SIZE = 2000
+AVERAGE_CLASS_SIZE = 26.6
+AVERAGE_OFFICE_SIZE = 12
+
+# m^2 per employee for occupation index 0..8 (employment_densities.rs).
+EMPLOYMENT_DENSITY_BY_OCCUPATION = (12, 12, 10, 12, 36, 47, 19, 36, 19)
+
+OCC_TEACHING = 8
+OCC_STUDENT = 9
+OCC_UNEMPLOYED = 10
+
+STATUS_SUSCEPTIBLE = 0
+STATUS_EXPOSED = 1
+STATUS_INFECTED = 2
+STATUS_RECOVERED = 3
+STATUS_VACCINATED = 4
+
+MASK_NONE = 0
+MASK_PUBLIC_TRANSPORT = 1
+MASK_EVERYWHERE = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DiseaseParams:
+    """SEIR(+V) disease parameters (disease.rs:96-129)."""
+
+    exposure_chance: float = 0.00055
+    death_rate: float = 0.2
+    exposed_time: int = 4 * 24
+    infected_time: int = 14 * 24
+    vaccination_rate: int = 85 * 18
+    mask_percentage: float = 0.8
+    mask_effectiveness: float = 0.70
+
+    @staticmethod
+    def covid() -> "DiseaseParams":
+        return DiseaseParams()
+
+
+@dataclasses.dataclass(frozen=True)
+class InterventionThresholds:
+    """Infected fractions that trigger interventions; negative disables."""
+
+    lockdown: float = 0.0034
+    vaccination: float = 0.005
+    mask_public_transport: float = 0.001
+    mask_everywhere: float = 0.0022
+
+
+#: v1.6-era exposure chance (see the JAX package's config.py).
+V16_EXPOSURE_CHANCE = 0.003
+
+
+@dataclasses.dataclass(frozen=True)
+class Params:
+    disease: DiseaseParams = dataclasses.field(default_factory=DiseaseParams)
+    thresholds: InterventionThresholds = dataclasses.field(
+        default_factory=InterventionThresholds
+    )
+
+    @staticmethod
+    def covid() -> "Params":
+        return Params(DiseaseParams.covid(), InterventionThresholds())
+
+    @staticmethod
+    def covid_v16() -> "Params":
+        """The reference's v1.6-era parameters: 100x thresholds and
+        5,100 vaccinations per step (85 x 60)."""
+        return Params(
+            DiseaseParams(exposure_chance=V16_EXPOSURE_CHANCE,
+                          vaccination_rate=5100),
+            InterventionThresholds(
+                lockdown=0.60,
+                vaccination=0.30,
+                mask_public_transport=0.20,
+                mask_everywhere=0.40,
+            ),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """The structural knobs that the fused fast step reads."""
+
+    max_steps: int = 5000
+    chunk_size: int = 250
+    #: per-OA exposure counts per step (statistics.rs:181-195)
+    record_exposures_per_oa: bool = True
+    #: the reference's inverted mask logic (citizen.rs:228-232)
+    reference_mask_semantics: bool = True
+    #: the reference's ``exposure_total as u8`` cast (citizen.rs:239)
+    reference_u8_truncation: bool = True
+    #: the reference's vaccine-pool quirks (simulator.rs:346-348, 524-553)
+    faithful_vaccine_bugs: bool = True
+    bus_capacity: int = BUS_CAPACITY

@@ -1,0 +1,302 @@
+// Run totals (B2) and the int8 cumsum (B3) of the fused step, for Hopper.
+//
+// Replaces epidemicsimulator_tpu/ops/pallas_scans.py: run_totals_fused
+// (_summary_kernel + _apply_kernel) and cumsum_pallas (_cumsum_kernel).
+// On the TPU the grid runs in order and cumsum_pallas carries its running
+// total from block to block in SMEM.  Here blocks run in parallel, so both
+// functions are three passes over tiles of TILE elements:
+//
+//   summary  each block reduces its tile: the sum and, per boundary set,
+//            the largest exclusive prefix at a run start and the smallest
+//            inclusive prefix at a run end (tile-local values);
+//   combine  one block scans the (n / TILE) summaries: each tile's
+//            exclusive offset and, per set, the carries from the tiles
+//            before (max) and after (min) it;
+//   apply    each block rescans its tile and writes totals (or the cumsum).
+//
+// Bound: memory.  B3 reads 1 byte and writes 4 per element; B2 reads
+// 1 + 2 * n_sets bytes and writes 4 * n_sets.  The tile is read twice
+// (summary and apply); the summaries are a few KB.  Block-level scans are
+// warp shuffles plus one shared-memory step.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int ITEMS = 16;
+constexpr int TILE = THREADS * ITEMS;
+constexpr int NEG = -(1 << 30);  // below any prefix, even plus an offset
+constexpr int POS = 1 << 30;
+constexpr unsigned FULL = 0xffffffffu;
+
+struct Add { __device__ int operator()(int a, int b) const { return a + b; } };
+struct Max { __device__ int operator()(int a, int b) const { return a > b ? a : b; } };
+struct Min { __device__ int operator()(int a, int b) const { return a < b ? a : b; } };
+
+// Exclusive scan of one value per thread in thread order (identity for
+// thread 0).  smem holds WARPS ints; every thread of the block must call.
+template <class Op>
+__device__ int block_scan_excl(int x, int identity, Op op, int* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = x;
+  for (int d = 1; d < 32; d <<= 1) {
+    int y = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl = op(y, incl);
+  }
+  if (lane == 31) smem[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < WARPS ? smem[lane] : identity;
+    for (int d = 1; d < 32; d <<= 1) {
+      int y = __shfl_up_sync(FULL, w, d);
+      if (lane >= d) w = op(y, w);
+    }
+    if (lane < WARPS) smem[lane] = w;
+  }
+  __syncthreads();
+  int before = __shfl_up_sync(FULL, incl, 1);
+  if (lane == 0) before = identity;
+  int result = op(warp > 0 ? smem[warp - 1] : identity, before);
+  __syncthreads();
+  return result;
+}
+
+// Exclusive scan in reverse thread order: thread t gets op over t+1..end.
+template <class Op>
+__device__ int block_rscan_excl(int x, int identity, Op op, int* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = x;
+  for (int d = 1; d < 32; d <<= 1) {
+    int y = __shfl_down_sync(FULL, incl, d);
+    if (lane + d < 32) incl = op(incl, y);
+  }
+  if (lane == 0) smem[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < WARPS ? smem[lane] : identity;
+    for (int d = 1; d < 32; d <<= 1) {
+      int y = __shfl_down_sync(FULL, w, d);
+      if (lane + d < 32) w = op(w, y);
+    }
+    if (lane < WARPS) smem[lane] = w;
+  }
+  __syncthreads();
+  int after = __shfl_down_sync(FULL, incl, 1);
+  if (lane == 31) after = identity;
+  int result = op(after, warp < WARPS - 1 ? smem[warp + 1] : identity);
+  __syncthreads();
+  return result;
+}
+
+template <class Op>
+__device__ int block_reduce(int x, int identity, Op op, int* smem) {
+  int excl = block_scan_excl(x, identity, op, smem);
+  // the last thread holds the total after combining its own value
+  __shared__ int total;
+  if (threadIdx.x == THREADS - 1) total = op(excl, x);
+  __syncthreads();
+  int t = total;
+  __syncthreads();
+  return t;
+}
+
+struct Masks {
+  const uint8_t* start[2];
+  const uint8_t* end[2];
+};
+
+// Loads this thread's ITEMS values (0 past n) and returns the exclusive
+// prefix of the thread's first element within the tile.
+__device__ int load_tile(const int8_t* v, long long n, int* vals, int* smem) {
+  const long long base = (long long)blockIdx.x * TILE + threadIdx.x * ITEMS;
+  int tsum = 0;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    vals[i] = base + i < n ? (int)v[base + i] : 0;
+    tsum += vals[i];
+  }
+  return block_scan_excl(tsum, 0, Add(), smem);
+}
+
+template <int NSETS>
+__global__ void scan_summary(const int8_t* v, Masks m, long long n, int nb,
+                             int* sums, int* mstart, int* mend) {
+  __shared__ int smem[WARPS];
+  int vals[ITEMS];
+  const int excl = load_tile(v, n, vals, smem);
+  int tsum = 0;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) tsum += vals[i];
+  const int total = block_reduce(tsum, 0, Add(), smem);
+  if (threadIdx.x == 0) sums[blockIdx.x] = total;
+  const long long base = (long long)blockIdx.x * TILE + threadIdx.x * ITEMS;
+#pragma unroll
+  for (int k = 0; k < NSETS; ++k) {
+    int mx = NEG, mn = POS, run = excl;
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int cse = run;
+      run += vals[i];
+      if (base + i < n) {
+        if (m.start[k][base + i]) mx = cse > mx ? cse : mx;
+        if (m.end[k][base + i]) mn = run < mn ? run : mn;
+      }
+    }
+    mx = block_reduce(mx, NEG, Max(), smem);
+    mn = block_reduce(mn, POS, Min(), smem);
+    if (threadIdx.x == 0) {
+      mstart[k * nb + blockIdx.x] = mx;
+      mend[k * nb + blockIdx.x] = mn;
+    }
+  }
+}
+
+// One block: tile offsets and, per set, the carries into each tile.
+template <int NSETS>
+__global__ void scan_combine(int nb, const int* sums, const int* mstart,
+                             const int* mend, int* offs, int* carry_c,
+                             int* carry_d) {
+  __shared__ int smem[WARPS];
+  const int per = (nb + THREADS - 1) / THREADS;
+  const int t0 = min(nb, (int)threadIdx.x * per), t1 = min(nb, t0 + per);
+  int local = 0;
+  for (int b = t0; b < t1; ++b) local += sums[b];
+  int run = block_scan_excl(local, 0, Add(), smem);
+  for (int b = t0; b < t1; ++b) {
+    offs[b] = run;
+    run += sums[b];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < NSETS; ++k) {
+    const int* ms = mstart + k * nb;
+    const int* me = mend + k * nb;
+    int mx = NEG, mn = POS;
+    for (int b = t0; b < t1; ++b) {
+      mx = max(mx, ms[b] + offs[b]);
+      mn = min(mn, me[b] + offs[b]);
+    }
+    int c = block_scan_excl(mx, NEG, Max(), smem);
+    for (int b = t0; b < t1; ++b) {
+      carry_c[k * nb + b] = c;
+      c = max(c, ms[b] + offs[b]);
+    }
+    int d = block_rscan_excl(mn, POS, Min(), smem);
+    for (int b = t1 - 1; b >= t0; --b) {
+      carry_d[k * nb + b] = d;
+      d = min(d, me[b] + offs[b]);
+    }
+  }
+}
+
+// NSETS == 0: out[0] receives the inclusive cumsum.  Otherwise out[k]
+// receives set k's run totals.
+template <int NSETS>
+__global__ void scan_apply(const int8_t* v, Masks m, long long n, int nb,
+                           const int* offs, const int* carry_c,
+                           const int* carry_d, int* out0, int* out1) {
+  __shared__ int smem[WARPS];
+  int vals[ITEMS];
+  const int excl = load_tile(v, n, vals, smem);
+  const int s = offs[blockIdx.x];
+  const long long base = (long long)blockIdx.x * TILE + threadIdx.x * ITEMS;
+  if (NSETS == 0) {
+    int run = s + excl;
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      run += vals[i];
+      if (base + i < n) out0[base + i] = run;
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < NSETS; ++k) {
+    int* out = k == 0 ? out0 : out1;
+    int sp[ITEMS], ep[ITEMS];
+    // forward: largest tile-local exclusive prefix at a start at or before i
+    int run = excl, mx = NEG;
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      if (base + i < n && m.start[k][base + i]) mx = max(mx, run);
+      run += vals[i];
+      sp[i] = mx;
+    }
+    const int before = block_scan_excl(mx, NEG, Max(), smem);
+    // reverse: smallest tile-local inclusive prefix at an end at or after i
+    int mn = POS;
+    run = excl;
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) run += vals[i];
+#pragma unroll
+    for (int i = ITEMS - 1; i >= 0; --i) {
+      if (base + i < n && m.end[k][base + i]) mn = min(mn, run);
+      run -= vals[i];
+      ep[i] = mn;
+    }
+    const int after = block_rscan_excl(mn, POS, Min(), smem);
+    const int c = carry_c[k * nb + blockIdx.x];
+    const int d = carry_d[k * nb + blockIdx.x];
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int spi = max(max(before, sp[i]) + s, c);
+      const int epi = min(min(after, ep[i]) + s, d);
+      if (base + i < n) out[base + i] = epi - spi;
+    }
+  }
+}
+
+template <int NSETS>
+int run_scans(const int8_t* v, Masks m, long long n, int* scratch, int* out0,
+              int* out1, cudaStream_t stream) {
+  const int nb = (int)((n + TILE - 1) / TILE);
+  int* sums = scratch;
+  int* offs = sums + nb;
+  int* mstart = offs + nb;
+  int* mend = mstart + NSETS * nb;
+  int* carry_c = mend + NSETS * nb;
+  int* carry_d = carry_c + NSETS * nb;
+  scan_summary<NSETS><<<nb, THREADS, 0, stream>>>(v, m, n, nb, sums, mstart,
+                                                 mend);
+  scan_combine<NSETS><<<1, THREADS, 0, stream>>>(nb, sums, mstart, mend, offs,
+                                                carry_c, carry_d);
+  scan_apply<NSETS><<<nb, THREADS, 0, stream>>>(v, m, n, nb, offs, carry_c,
+                                               carry_d, out0, out1);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Elements per tile: scratch holds (2 + 4 * n_sets) ints per tile.
+extern "C" int es_scan_tile_elems() { return TILE; }
+
+extern "C" const char* es_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// B3: out[i] = v[0] + ... + v[i] in int32.
+extern "C" int es_cumsum_i8(const void* v, void* out, void* scratch,
+                            long long n, void* stream) {
+  Masks m = {{nullptr, nullptr}, {nullptr, nullptr}};
+  return run_scans<0>((const int8_t*)v, m, n, (int*)scratch, (int*)out,
+                      nullptr, (cudaStream_t)stream);
+}
+
+// B2: for each of n_sets (1 or 2) boundary sets, the total of v over the
+// run that holds each element.
+extern "C" int es_run_totals_i8(const void* v, const void* start0,
+                                const void* end0, const void* start1,
+                                const void* end1, void* out0, void* out1,
+                                void* scratch, long long n, int n_sets,
+                                void* stream) {
+  Masks m = {{(const uint8_t*)start0, (const uint8_t*)start1},
+             {(const uint8_t*)end0, (const uint8_t*)end1}};
+  if (n_sets == 1)
+    return run_scans<1>((const int8_t*)v, m, n, (int*)scratch, (int*)out0,
+                        nullptr, (cudaStream_t)stream);
+  if (n_sets == 2)
+    return run_scans<2>((const int8_t*)v, m, n, (int*)scratch, (int*)out0,
+                        (int*)out1, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}

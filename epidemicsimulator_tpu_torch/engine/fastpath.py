@@ -1,0 +1,256 @@
+"""The fused fast step: the main-path formulation of the JAX package's
+``engine/fastpath.py::fast_step`` (``SimConfig(use_fused_citizen=True,
+use_pallas_scans=True)``, dense apply), written for eager PyTorch.
+
+Per step:
+
+1. the threefry key chain gives the step's seeds, on the host;
+2. kernel B1 runs the citizen phase and counts the census; reading those
+   eight counts is the step's one device-to-host read, and it decides
+   which sides run;
+3. the work side (hours with infected workers at work) gathers the
+   contributor bits into work order, takes the building and room totals
+   with kernel B2, draws the work exposures and counts them per work OA
+   with kernel B3;
+4. the bus side (hours with an infected rider on a bus) shuffles riders
+   into buses and draws the bus exposures (ops/segments.py);
+5. the hits are applied, the home exposures are counted per OA (B3),
+   the interventions are updated on the host from the census, and an
+   exact-k vaccination picks the k lowest fresh hash scores of the pool,
+   ranking ties at the threshold with B3.
+
+The JAX package has a sorted and a sortless body for the work and bus
+sides, chosen per hour by cost; they give identical values, and so does
+the one body here, which uses plain index operations for its
+permutations.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import (
+    MASK_EVERYWHERE,
+    MASK_NONE,
+    MASK_PUBLIC_TRANSPORT,
+    STATUS_EXPOSED,
+    STATUS_SUSCEPTIBLE,
+    STATUS_VACCINATED,
+)
+from ..ops import maths, scans, segments, threefry
+from ..ops.citizen import CitizenStatics, citizen_phase, make_citizen_statics
+from ..ops.hashrng import hash_bits, hash_uniform
+from ..ops.select import bisect_threshold
+from .state import SimState
+from .step import StepOutput
+
+
+class StepTables(NamedTuple):
+    """A world's static step inputs, built once per run."""
+
+    statics: CitizenStatics
+    work_perm: torch.Tensor   # int64, citizen of each work-order slot
+    wpos: torch.Tensor        # int64, work-order slot of each citizen
+    rider_perm: torch.Tensor  # int64, citizen of each rider slot
+    oa_lo: torch.Tensor
+    oa_hi: torch.Tensor
+    ws_oa_lo: torch.Tensor
+    ws_oa_hi: torch.Tensor
+    iota: torch.Tensor        # int64 arange(N), the hash counters
+
+
+def make_step_tables(world) -> StepTables:
+    """From a world whose lanes are tensors on the run's device."""
+    if world.oa_lo.shape[0] != world.n_output_areas:
+        raise ValueError("the fast step needs the per-OA range tables")
+    long = lambda x: x.long()
+    return StepTables(
+        statics=make_citizen_statics(world),
+        work_perm=long(world.work_perm),
+        wpos=long(world.wpos),
+        rider_perm=long(world.rider_perm),
+        oa_lo=long(world.oa_lo),
+        oa_hi=long(world.oa_hi),
+        ws_oa_lo=long(world.ws_oa_lo),
+        ws_oa_hi=long(world.ws_oa_hi),
+        iota=torch.arange(world.n_citizens, dtype=torch.int64,
+                          device=world.work_perm.device),
+    )
+
+
+def _exposure_p(p0, mask_scale, mask_status, compliant, on_bus, reference):
+    """Mask-adjusted exposure chance in float32 (disease.rs:131-154)."""
+    if reference:
+        active = (mask_status == MASK_EVERYWHERE) & ~compliant
+    else:
+        active = compliant & ((mask_status == MASK_EVERYWHERE)
+                              | ((mask_status == MASK_PUBLIC_TRANSPORT) & on_bus))
+    # float32 values times a Python float that is exactly a float32:
+    # the product is the float32 product, as in the JAX package
+    return torch.where(active, float(mask_scale), 1.0) * float(p0)
+
+
+def _work_side(world, tables, cfg, p_fn, gates, sched, seed_w, record_oa):
+    """Work exposures as a citizen-order hit lane, and their count per
+    work OA (building.rs:278-280; school rooms per building.rs:494-522)."""
+    g_ws = gates[tables.work_perm]
+    n_w, room = scans.run_totals_fused(
+        g_ws & 1,
+        [(world.ws_wb_start_mask, world.ws_wb_end_mask),
+         (world.ws_room_start_mask, world.ws_room_end_mask)],
+    )
+    draws = torch.where(world.ws_is_school, room, (n_w > 0).to(torch.int32))
+    at_work_ws = (sched & 8) != 0
+    p_ws = p_fn(world.ws_mask_compliant, (sched & 16) != 0)
+    cur_oa = torch.where(at_work_ws, world.ws_work_oa, world.ws_home_oa)
+    n_eff = maths.truncate_u8(n_w) if cfg.reference_u8_truncation else n_w
+    q_single = maths.binomial_at_least_one(p_ws, n_eff)
+    q = torch.where((cur_oa == world.ws_work_oa) & world.ws_work_neq_home,
+                    maths.binomial_at_least_one(q_single, draws), 0.0)
+    hit_ws = ((g_ws & 2) != 0) & (hash_uniform(seed_w, tables.iota) < q)
+    if record_oa:
+        from_work = hit_ws & ((g_ws & 4) == 0)
+        oa_work = scans.range_totals(from_work, tables.ws_oa_lo, tables.ws_oa_hi)
+    else:
+        oa_work = None
+    return hit_ws[tables.wpos], oa_work
+
+
+def _vaccinate(status, eligible, rate, seed_vax, tables, faithful):
+    """Exact-k uniform selection (simulator.rs:524-553): the k lowest
+    fresh hash scores of the pool, ties at the threshold taken in citizen
+    order.  No device read."""
+    k = torch.clamp(eligible.sum(), max=int(rate))
+    scores = hash_bits(seed_vax, tables.iota)
+    tau = bisect_threshold(scores, eligible, k)
+    below = eligible & (scores < tau)
+    at = eligible & (scores == tau)
+    allowed = k - below.sum()
+    chosen = below | (at & (scans.cumsum_i8(at) <= allowed))
+    new = torch.where(chosen, STATUS_VACCINATED, status)
+    if not faithful:
+        new = torch.where(chosen & (status != STATUS_SUSCEPTIBLE), status, new)
+        eligible = eligible & ~chosen
+    return new, eligible, chosen.sum(dtype=torch.int32)
+
+
+def _next_mask_status(ms, pct, th_pt, th_all):
+    """interventions.rs:142-180."""
+    if ms == MASK_NONE:
+        return MASK_PUBLIC_TRANSPORT if pct > th_pt else MASK_NONE
+    if ms == MASK_PUBLIC_TRANSPORT:
+        if pct < th_pt:
+            return MASK_NONE
+        return MASK_EVERYWHERE if pct > th_all else MASK_PUBLIC_TRANSPORT
+    return MASK_PUBLIC_TRANSPORT if pct < th_all else MASK_EVERYWHERE
+
+
+def fast_step(world, params, cfg, state: SimState, tables=None):
+    """One hour from ``state``; returns ``(new_state, StepOutput)``.
+    ``world`` holds tensors on the state's device; ``tables`` are its
+    :func:`make_step_tables`, built here when not given."""
+    d, th = params.disease, params.thresholds
+    n = world.n_citizens
+    dev = state.status.device
+    if tables is None:
+        tables = make_step_tables(world)
+    f32 = np.float32
+
+    hour = state.hour + 1
+    k_bus, k_h, k_w, k_b, k_vax = threefry.split(
+        threefry.fold_in(state.rng_key, hour), 5)
+    p0 = f32(d.exposure_chance)
+    mask_scale = f32(1.0) - f32(d.mask_effectiveness)
+
+    status, timer, sched, gates, totals = citizen_phase(
+        tables.statics, state.status, state.timer, state.sched,
+        h24=hour % 24, move=not state.lockdown, mask_status=state.mask_status,
+        seed=threefry.bits(k_h), exposed_time=int(d.exposed_time),
+        infected_time=int(d.infected_time), exposure_chance=p0,
+        mask_scale=mask_scale, K=world.max_household_size,
+        ref_mask_sem=cfg.reference_mask_semantics,
+        u8_trunc=cfg.reference_u8_truncation,
+    )
+    census = totals.tolist()  # the step's one device read
+    hit_home = (gates & 4) != 0
+    record_oa = cfg.record_exposures_per_oa
+
+    def p_fn(compliant, on_bus):
+        return _exposure_p(p0, mask_scale, state.mask_status, compliant,
+                           on_bus, cfg.reference_mask_semantics)
+
+    no_hits = torch.zeros(n, dtype=torch.bool, device=dev)
+    oa_work = None
+    hit_work = no_hits
+    if census[5] > 0:
+        hit_work, oa_work = _work_side(world, tables, cfg, p_fn, gates, sched,
+                                       threefry.bits(k_w), record_oa)
+    hit_bus = no_hits
+    if census[6] > 0 and world.n_riders > 0:
+        pk = gates[tables.rider_perm]
+        hit_bus = segments.bus_hits(
+            k_bus, k_b, (pk & 8) != 0, (pk & 16) != 0, (pk & 2) != 0,
+            world.rider_mask_compliant, world.rider_route, tables.rider_perm,
+            cfg.bus_capacity, p_fn, n,
+        )[0]
+
+    # apply (the home hits are already in status/timer; re-applying them
+    # is idempotent)
+    newly = hit_home | hit_work | hit_bus
+    status = torch.where(newly, STATUS_EXPOSED, status)
+    timer = torch.where(newly, 0, timer)
+    from_bus = hit_bus & ~hit_home & ~hit_work
+    if cfg.faithful_vaccine_bugs:
+        eligible = state.eligible & ~from_bus
+    else:
+        eligible = state.eligible & ~newly
+    n_new = newly.sum(dtype=torch.int32)
+    if record_oa:
+        exposures = scans.range_totals(hit_home, tables.oa_lo, tables.oa_hi)
+        if oa_work is not None:
+            exposures = exposures + oa_work
+    else:
+        exposures = torch.zeros(0, dtype=torch.int32, device=dev)
+    seirv = totals[:5].clone()
+    seirv[STATUS_SUSCEPTIBLE] -= n_new
+    seirv[STATUS_EXPOSED] += n_new
+
+    # interventions (interventions.rs:110-184), in float32 as the JAX
+    # package compares them; the census total is N and exposures only move
+    # citizens from S to E, so the census decides them
+    pct = f32(census[2]) / f32(sum(census[:5]))
+    lockdown = bool(f32(th.lockdown) >= 0 and f32(th.lockdown) < pct)
+    newly_started = (not state.vaccination_started
+                     and f32(th.vaccination) >= 0 and f32(th.vaccination) < pct)
+    vaccination_started = state.vaccination_started or newly_started
+    if newly_started:
+        eligible = status == STATUS_SUSCEPTIBLE
+    ms_next = _next_mask_status(state.mask_status, pct,
+                                f32(th.mask_public_transport),
+                                f32(th.mask_everywhere))
+
+    if vaccination_started:
+        status, eligible, n_vax = _vaccinate(
+            status, eligible, d.vaccination_rate, threefry.bits(k_vax),
+            tables, cfg.faithful_vaccine_bugs)
+    else:
+        n_vax = torch.zeros((), dtype=torch.int32, device=dev)
+
+    new_state = SimState(
+        status=status, timer=timer, sched=sched, eligible=eligible,
+        hour=hour, lockdown=lockdown, vaccination_started=vaccination_started,
+        mask_status=ms_next, rng_key=state.rng_key,
+    )
+    out = StepOutput(
+        seirv=seirv,
+        exposures_per_oa=exposures,
+        n_bus_exposures=from_bus.sum(dtype=torch.int32),
+        n_exposures=n_new,
+        lockdown=lockdown,
+        mask_status=ms_next,
+        n_vaccinated_now=n_vax,
+    )
+    return new_state, out

@@ -1,0 +1,74 @@
+"""Multi-step runs: chunks of steps with a host check for the end of the
+epidemic between chunks (the JAX package's ``engine/scan.py``).
+
+The reference loop (simulator.rs:108-127) stops once no citizen is
+exposed, infected or susceptible.  A chunk runner steps ``chunk_size``
+hours eagerly and stacks the observables on the device; :func:`run`
+reads each chunk's SEIRV on the host and stops after the chunk in which
+the epidemic ended, keeping the step that reported it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .fastpath import make_step_tables
+from .step import StepOutput, step
+
+
+def make_chunk_runner(world, cfg):
+    """``chunk(params, state) -> (state, StepOutput[chunk_size])`` for a
+    world whose lanes are on the run's device.  The per-OA series is
+    int16, saturating at 32767, as the JAX package ships it."""
+    tables = make_step_tables(world)
+
+    def chunk(params, state):
+        outs = []
+        for _ in range(cfg.chunk_size):
+            state, out = step(world, params, cfg, state, tables=tables)
+            outs.append(out)
+        dev = state.status.device
+        stack = lambda name: torch.stack([getattr(o, name) for o in outs])
+        host = lambda name, dtype: torch.tensor(
+            [getattr(o, name) for o in outs], dtype=dtype, device=dev)
+        return state, StepOutput(
+            seirv=stack("seirv"),
+            exposures_per_oa=torch.clamp(stack("exposures_per_oa"),
+                                         max=32767).to(torch.int16),
+            n_bus_exposures=stack("n_bus_exposures"),
+            n_exposures=stack("n_exposures"),
+            lockdown=host("lockdown", torch.bool),
+            mask_status=host("mask_status", torch.int8),
+            n_vaccinated_now=stack("n_vaccinated_now"),
+        )
+
+    return chunk
+
+
+def run(world, params, cfg, state):
+    """Run until the epidemic ends or ``cfg.max_steps`` steps have run.
+
+    Returns ``(final_state, outputs)``: outputs is a StepOutput of stacked
+    numpy arrays, cut after the first step at which no citizen was
+    exposed, infected or susceptible.  The final state is the state after
+    the last chunk run.
+    """
+    chunk = make_chunk_runner(world, cfg)
+    chunks = []
+    steps = 0
+    while steps < cfg.max_steps:
+        state, out = chunk(params, state)
+        out = StepOutput(*(x.cpu().numpy() for x in out))
+        chunks.append(out)
+        steps += out.seirv.shape[0]
+        if out.seirv[-1, :3].sum() == 0:
+            break
+    outputs = StepOutput(*(
+        np.concatenate(xs, axis=0)[: cfg.max_steps] for xs in zip(*chunks)
+    ))
+    alive = outputs.seirv[:, :3].sum(axis=1) > 0
+    if not alive.all():
+        end = int(np.argmin(alive)) + 1
+        outputs = StepOutput(*(x[:end] for x in outputs))
+    return state, outputs

@@ -1,0 +1,195 @@
+"""Kernel B1: the fused citizen phase of the step, with its plain torch
+version.
+
+Replaces ``epidemicsimulator_tpu/ops/pallas_citizen.py::citizen_phase``;
+the CUDA kernel is ``csrc/citizen.cu``.  One pass over all citizens does
+the disease timers, the movement of the schedule and of its work-order
+twin, the infected housemates at home, the home exposure probability and
+draw, applies the home hits, packs the gates lane for the work and bus
+sides, and counts the pre-exposure census.
+
+Lanes, all (N,):
+
+* ``sched`` (int8) packs at_work | on_bus<<1 | bus_to_work<<2 |
+  at_work_ws<<3 | on_bus_ws<<4 (the last two are the work-order twin:
+  their position j is the citizen ``work_perm[j]``);
+* ``gates`` (int8) packs contrib_work | susceptible<<1 | hit_home<<2 |
+  on_bus<<3 | infected<<4;
+* ``totals`` (8,) int32: S, E, I, R, V before exposure, work contributors,
+  infected riders on a bus, home hits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import runtime
+from . import maths
+from .hashrng import hash_uniform
+
+
+class CitizenStatics(NamedTuple):
+    """The kernel's static lanes, bit-packed into five int8 lanes:
+
+    * ``a``: work_start | uses_transport<<5 | work_neq_home<<6
+    * ``b``: work_end | (hh_pos & 7)<<5
+    * ``c``: (hh_pos >> 3) | hh_size<<2
+    * ``d``: ws_work_start | mask_compliant<<5 | same_oa<<6
+    * ``e``: ws_work_end | ws_uses_transport<<5
+    """
+
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    d: torch.Tensor
+    e: torch.Tensor
+
+
+def make_citizen_statics(world) -> CitizenStatics:
+    """Pack the static lanes of a world whose lanes are tensors."""
+    i32 = lambda x: x.to(torch.int32)
+    ws, we = i32(world.work_start), i32(world.work_end)
+    uses = i32(world.uses_transport)
+    wneq = i32(world.work_building != world.home_building)
+    pos, size = i32(world.hh_pos), i32(world.hh_size)
+    compliant = i32(world.mask_compliant)
+    same_oa = i32(world.work_oa == world.home_oa)
+    i8 = lambda x: x.to(torch.int8).contiguous()
+    return CitizenStatics(
+        a=i8(ws | (uses << 5) | (wneq << 6)),
+        b=i8(we | ((pos & 7) << 5)),
+        c=i8((pos >> 3) | (size << 2)),
+        d=i8(i32(world.ws_work_start) | (compliant << 5) | (same_oa << 6)),
+        e=i8(i32(world.ws_work_end) | (i32(world.ws_uses_transport) << 5)),
+    )
+
+
+def _movement(h24, move, ws, we, uses, at_work, on_bus):
+    arm_bus_out = (h24 == ws - 1) & uses
+    if not move:
+        return at_work, on_bus, arm_bus_out
+    arm_to_work = h24 == ws
+    arm_to_home = h24 == we
+    on_bus1 = arm_bus_out | ((h24 == we - 1) & uses)
+    at_work1 = torch.where(arm_to_work, True,
+                           torch.where(arm_to_home, False, at_work))
+    return at_work1, on_bus1, arm_bus_out
+
+
+def citizen_phase_plain(statics, status, timer, sched, *, h24, move,
+                        mask_status, seed, exposed_time, infected_time,
+                        exposure_chance, mask_scale, K, ref_mask_sem,
+                        u8_trunc, want_q=False):
+    u8 = lambda x: x.to(torch.int32) & 0xFF
+    pa, pb, pc, pd, pe = (u8(x) for x in statics)
+    sch = u8(sched)
+    ws, we = pa & 31, pb & 31
+    uses, wneq = ((pa >> 5) & 1) != 0, ((pa >> 6) & 1) != 0
+    pos = ((pb >> 5) & 7) | ((pc & 3) << 3)
+    size = (pc >> 2) & 31
+
+    st = status.to(torch.int32)
+    is_e, is_i = st == 1, st == 2
+    e_to_i = is_e & (timer >= exposed_time)
+    i_to_r = is_i & (timer >= infected_time)
+    st1 = torch.where(i_to_r, 3, torch.where(e_to_i, 2, st))
+    tm1 = torch.where(e_to_i | i_to_r, 0,
+                      torch.where(is_e | is_i, timer + 1, timer))
+
+    at_work1, on_bus1, arm_bus_out = _movement(
+        h24, move, ws, we, uses, (sch & 1) != 0, (sch & 2) != 0)
+    inf_active = (st1 == 2) & ~on_bus1
+    contrib = (inf_active & (~at_work1 | ~wneq)).to(torch.int32)
+    n_h = contrib.clone()
+    for d in range(1, K):
+        n_h += torch.where(pos + d < size, torch.roll(contrib, -d), 0)
+        n_h += torch.where(pos - d >= 0, torch.roll(contrib, d), 0)
+
+    at_work_ws1, on_bus_ws1, _ = _movement(
+        h24, move, pd & 31, pe & 31, ((pe >> 5) & 1) != 0,
+        (sch & 8) != 0, (sch & 16) != 0)
+    btw1 = arm_bus_out if move else (sch & 4) != 0
+
+    compliant, same_oa = ((pd >> 5) & 1) != 0, ((pd >> 6) & 1) != 0
+    if ref_mask_sem:
+        active = (mask_status == 2) & ~compliant
+    else:
+        active = compliant & ((mask_status == 2) | ((mask_status == 1) & on_bus1))
+    # float32 values times a float32-exact Python float: a float32 product
+    p = torch.where(active, float(mask_scale), 1.0) * float(exposure_chance)
+    q = maths.home_probability(p, (n_h & 0xFF) if u8_trunc else n_h)
+    q = torch.where(~at_work1 | same_oa, q, 0.0)
+
+    idx = torch.arange(st.shape[0], dtype=torch.int64, device=status.device)
+    susceptible = st1 == 0
+    hit = susceptible & (hash_uniform(seed, idx) < q)
+    contrib_work = inf_active & at_work1 & wneq
+
+    i32 = lambda x: x.to(torch.int32)
+    gates = (i32(contrib_work) | (i32(susceptible) << 1) | (i32(hit) << 2)
+             | (i32(on_bus1) << 3) | (i32(st1 == 2) << 4))
+    sched1 = (i32(at_work1) | (i32(on_bus1) << 1) | (i32(btw1) << 2)
+              | (i32(at_work_ws1) << 3) | (i32(on_bus_ws1) << 4))
+    totals = torch.stack(
+        [(st1 == s).sum(dtype=torch.int32) for s in range(5)]
+        + [contrib_work.sum(dtype=torch.int32),
+           (on_bus1 & (st1 == 2)).sum(dtype=torch.int32),
+           hit.sum(dtype=torch.int32)]
+    )
+    out = (
+        torch.where(hit, 1, st1).to(torch.int8),
+        torch.where(hit, 0, tm1).to(torch.int32),
+        sched1.to(torch.int8),
+        gates.to(torch.int8),
+        totals,
+    )
+    return out + (q,) if want_q else out
+
+
+def citizen_phase(statics, status, timer, sched, *, h24, move, mask_status,
+                  seed, exposed_time, infected_time, exposure_chance,
+                  mask_scale, K, ref_mask_sem, u8_trunc, want_q=False):
+    """Returns ``(status1, timer1, sched1, gates, totals)`` (and the
+    float32 home probability lane if ``want_q``).  Scalars are Python
+    values: ``h24`` the hour of day, ``move`` False under lockdown,
+    ``seed`` the u32 home-draw seed, ``exposure_chance`` and
+    ``mask_scale`` (1 - mask_effectiveness) float32 values.  ``K`` is the
+    world's largest household, at most 24."""
+    if not 0 < K <= 24:
+        raise ValueError("the fused citizen phase needs households of 1..24")
+    kw = dict(h24=h24, move=move, mask_status=mask_status, seed=seed,
+              exposed_time=exposed_time, infected_time=infected_time,
+              exposure_chance=exposure_chance, mask_scale=mask_scale, K=K,
+              ref_mask_sem=ref_mask_sem, u8_trunc=u8_trunc, want_q=want_q)
+    if status.device.type == "cpu":
+        return citizen_phase_plain(statics, status, timer, sched, **kw)
+    lanes = (*statics, status, timer, sched)
+    runtime.check_lanes("citizen_phase", *lanes)
+    n = status.shape[0]
+    dtypes = [torch.int8] * 6 + [torch.int32, torch.int8]
+    if any(x.dtype != dt or x.shape != (n,) for x, dt in zip(lanes, dtypes)):
+        raise ValueError("citizen_phase: lanes must be (N,) with the kernel's dtypes")
+    dev = status.device
+    status1 = torch.empty(n, dtype=torch.int8, device=dev)
+    timer1 = torch.empty(n, dtype=torch.int32, device=dev)
+    sched1 = torch.empty(n, dtype=torch.int8, device=dev)
+    gates = torch.empty(n, dtype=torch.int8, device=dev)
+    totals = torch.zeros(8, dtype=torch.int32, device=dev)
+    q = torch.empty(n, dtype=torch.float32, device=dev) if want_q else None
+    if n:
+        err = runtime.library().es_citizen_phase(
+            *(x.data_ptr() for x in lanes),
+            status1.data_ptr(), timer1.data_ptr(), sched1.data_ptr(),
+            gates.data_ptr(), totals.data_ptr(),
+            q.data_ptr() if want_q else None,
+            n, int(h24), int(bool(move)), int(mask_status), int(seed),
+            int(exposed_time), int(infected_time), float(exposure_chance),
+            float(mask_scale), int(bool(ref_mask_sem)), int(bool(u8_trunc)),
+            runtime.stream_handle(),
+        )
+        runtime.check(err, "citizen_phase")
+        runtime.launches["citizen_phase"] += 1
+    out = (status1, timer1, sched1, gates, totals)
+    return out + (q,) if want_q else out

@@ -1,0 +1,116 @@
+"""The per-step bus grouping: shuffle each route's riders, cut them into
+buses of ``capacity``, and draw each susceptible rider's exposure.
+
+A plain torch copy of ``bus_hits`` and ``bus_hits_sortless`` from
+``epidemicsimulator_tpu/ops/segments.py``.  The shuffle is a stable sort
+by (route, tie), where non-riding lanes carry route INT32_MAX and ``tie``
+is the threefry u32 lane read as SIGNED int32.  torch has no two-key sort,
+so both keys ride one int64: the route in the high 32 bits and the tie
+with its sign bit flipped (which maps signed order onto unsigned order)
+in the low 32.  ``torch.sort(stable=True)`` then keeps lane order among
+equal keys, as ``lax.sort`` does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import maths, threefry
+from .runsums import run_totals
+from .sparse import block_hierarchy, compact_from_hierarchy
+
+INT32_MAX = 2**31 - 1
+
+
+def shuffle_order(rk, tie_u32):
+    """Stable order by (rk, tie read as signed int32): ``(rk_sorted,
+    order)``.  ``rk`` holds nonnegative int32 values and ``tie_u32`` u32
+    values, both in int64."""
+    key_s, order = torch.sort((rk << 32) | (tie_u32 ^ 0x80000000), stable=True)
+    return key_s >> 32, order
+
+
+def _shuffle_and_draw(key_shuffle, key_draw, rb_on, rb_inf, rb_compliant,
+                      rider_route, capacity: int, exposure_p_fn):
+    """Sorted rider order and the post-draw candidates ``valid & u < q``
+    (susceptibility not yet applied), both in sorted order."""
+    r = rb_on.shape[0]
+    device = rb_on.device
+    rk = torch.where(rb_on, rider_route.long(),
+                     torch.full((r,), INT32_MAX, dtype=torch.int64,
+                                device=device))
+    rk_s, order = shuffle_order(rk, threefry.bits(key_shuffle, r, device))
+
+    pos_i = torch.arange(r, dtype=torch.int64, device=device)
+    boundary = torch.ones(r, dtype=torch.bool, device=device)
+    boundary[1:] = rk_s[1:] != rk_s[:-1]
+    seg_start = torch.cummax(torch.where(boundary, pos_i, 0), 0).values
+    bus_start = boundary | ((pos_i - seg_start) % capacity == 0)
+    bus_end = torch.ones(r, dtype=torch.bool, device=device)
+    bus_end[:-1] = bus_start[1:]
+
+    n_bus = run_totals(rb_inf[order], bus_start, bus_end)
+    valid = rk_s != INT32_MAX
+    p = exposure_p_fn(rb_compliant[order], valid)
+    q = torch.where(valid & (n_bus > 0), maths.binomial_at_least_one(p, n_bus),
+                    0.0)
+    cand = valid & (threefry.uniform(key_draw, r, device) < q)
+    return order, cand
+
+
+def bus_hits(key_shuffle, key_draw, rb_on, rb_inf, rb_susc, rb_compliant,
+             rider_route, rider_citizen_id, capacity: int, exposure_p_fn,
+             n_citizens: int):
+    """Bus exposures of one step.
+
+    Inputs are rider-order lanes (R,): riding now, infected, susceptible,
+    mask compliant, the static route id, and the citizen id of each
+    rider.  ``exposure_p_fn(compliant, on_bus) -> float32`` gives the
+    mask-adjusted exposure chance.  Returns ``(cit_lane, rider_lane,
+    n_hits)``: the (n_citizens,) and (R,) bool hit lanes and their count.
+    """
+    r = rb_on.shape[0]
+    device = rb_on.device
+    cit_lane = torch.zeros(n_citizens, dtype=torch.bool, device=device)
+    rider_lane = torch.zeros(r, dtype=torch.bool, device=device)
+    if r == 0:
+        return cit_lane, rider_lane, torch.zeros((), dtype=torch.int32,
+                                                 device=device)
+    order, cand = _shuffle_and_draw(key_shuffle, key_draw, rb_on, rb_inf,
+                                    rb_compliant, rider_route, capacity,
+                                    exposure_p_fn)
+    hit = cand & rb_susc[order]
+    hit_riders = order[hit]
+    rider_lane[hit_riders] = True
+    cit_lane[rider_citizen_id[hit_riders].long()] = True
+    return cit_lane, rider_lane, hit.sum(dtype=torch.int32)
+
+
+def bus_hits_sortless(key_shuffle, key_draw, rb_on, rb_inf, rb_compliant,
+                      rider_route, rider_citizen_id, capacity: int,
+                      exposure_p_fn, susc_of_rider, max_hits: int = 16384):
+    """:func:`bus_hits` with susceptibility applied after the draw, to the
+    first ``max_hits`` candidates in sorted order (``susc_of_rider(ids)
+    -> bool``).  Returns ``(rider_lane, rider_ids, live, n_hits, cit_ids,
+    cand_total)`` as the JAX function does; valid while ``cand_total <=
+    max_hits``."""
+    r = rb_on.shape[0]
+    device = rb_on.device
+    if r == 0:
+        z = torch.zeros(0, dtype=torch.int32, device=device)
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        return (torch.zeros(0, dtype=torch.bool, device=device), z,
+                torch.zeros(0, dtype=torch.bool, device=device), zero, z, zero)
+    order, cand = _shuffle_and_draw(key_shuffle, key_draw, rb_on, rb_inf,
+                                    rb_compliant, rider_route, capacity,
+                                    exposure_p_fn)
+    pos, live_c, cand_total = compact_from_hierarchy(
+        block_hierarchy(cand, block=128), min(max_hits, r), n=r, sb=128
+    )
+    rider_ids = order[torch.clamp(pos.long(), max=r - 1)]
+    live = live_c & susc_of_rider(rider_ids)
+    cit_ids = rider_citizen_id[rider_ids].to(torch.int32)
+    rider_lane = torch.zeros(r, dtype=torch.bool, device=device)
+    rider_lane[rider_ids[live]] = True
+    return (rider_lane, rider_ids.to(torch.int32), live,
+            live.sum(dtype=torch.int32), cit_ids, cand_total)

@@ -1,0 +1,118 @@
+"""The CUDA kernels of the port against their plain torch versions, on a
+card.  Every test here is marked ``gpu`` and skips without a CUDA device.
+This file imports nothing of JAX; run it on a machine with a card as
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+(``--noconftest``: tests/conftest.py sets up JAX for the CPU tests).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import epidemicsimulator_tpu_torch as et
+from epidemicsimulator_tpu_torch.ops import citizen, scans
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _runs(rng, n, avg_run, within=None):
+    start = rng.random(n) < 1.0 / avg_run
+    start[0] = True
+    if within is not None:
+        start |= within
+    end = np.empty(n, bool)
+    end[:-1] = start[1:]
+    end[-1] = True
+    return start, end
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 1_000_003])
+def test_cumsum_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    v = torch.from_numpy(rng.integers(0, 4, n).astype(np.int8)).to(cuda)
+    assert torch.equal(scans.cumsum_i8(v), scans.cumsum_i8_plain(v))
+    b = v > 1
+    assert torch.equal(scans.cumsum_i8(b), scans.cumsum_i8_plain(b))
+
+
+@pytest.mark.parametrize("n", [1, 4097, 1_000_003])
+def test_run_totals_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    v = torch.from_numpy((rng.random(n) < 0.3).astype(np.int8)).to(cuda)
+    coarse = _runs(rng, n, 5000)
+    fine = _runs(rng, n, 9, within=coarse[0])
+    to = lambda pair: tuple(torch.from_numpy(m).to(cuda) for m in pair)
+    for sets in ([to(coarse)], [to(coarse), to(fine)], [to(fine)]):
+        got = scans.run_totals_fused(v, sets)
+        want = scans.run_totals_fused_plain(v, sets)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("h24,move,mask_status,p0", [
+    (8, True, 2, 0.00055), (9, True, 1, 0.05), (17, False, 0, 1.0),
+])
+def test_citizen_kernel_matches_plain(cuda, h24, move, mask_status, p0):
+    """Lanes bitwise; q within 2 ulp; a home hit may differ only where q
+    differs by exactly 1 ulp."""
+    world = et.generate_synthetic_world(200_000, n_output_areas=40, seed=2).to(cuda)
+    n = world.n_citizens
+    rng = np.random.default_rng(h24)
+    dev = lambda x: torch.from_numpy(x).to(cuda)
+    status = dev(rng.choice(5, n, p=[0.7, 0.1, 0.1, 0.05, 0.05]).astype(np.int8))
+    timer = dev(rng.integers(0, 400, n).astype(np.int32))
+    sched = dev(rng.integers(0, 32, n).astype(np.int8))
+    f32 = np.float32
+    kw = dict(h24=h24, move=move, mask_status=mask_status,
+              seed=int(rng.integers(0, 2**32)), exposed_time=96,
+              infected_time=336, exposure_chance=f32(p0),
+              mask_scale=f32(1.0) - f32(0.7), K=world.max_household_size,
+              ref_mask_sem=True, u8_trunc=True, want_q=True)
+    statics = citizen.make_citizen_statics(world)
+    got = citizen.citizen_phase(statics, status, timer, sched, **kw)
+    want = citizen.citizen_phase_plain(statics, status, timer, sched, **kw)
+    same = (got[5] == want[5]) | (got[5].isnan() & want[5].isnan())
+    ulp = torch.where(same, 0, (got[5].view(torch.int32).long()
+                                - want[5].view(torch.int32).long()).abs())
+    assert int(ulp.max()) <= 2
+    flip = ((got[3] & 4) != 0) != ((want[3] & 4) != 0)
+    assert not bool((flip & (ulp != 1)).any())
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a[~flip], b[~flip])
+    assert torch.equal(got[4][:7], want[4][:7])
+
+
+def test_main_path_on_card_matches_cpu(cuda):
+    """Deterministic regime, 3000 citizens, 48 steps: the card's run
+    through the kernels equals the CPU run through the plain versions,
+    and every kernel was launched."""
+    base = et.Params.covid()
+    params = et.Params(
+        dataclasses.replace(base.disease, exposure_chance=1.0, exposed_time=6,
+                            infected_time=12, vaccination_rate=25),
+        dataclasses.replace(base.thresholds, lockdown=0.35, vaccination=0.05,
+                            mask_public_transport=2.0, mask_everywhere=2.0),
+    )
+    cfg = et.SimConfig(max_steps=48, chunk_size=48)
+    runs = []
+    for device in (cuda, "cpu"):
+        world = et.generate_synthetic_world(3000, n_output_areas=6, seed=4).to(device)
+        state = et.init_state(world, seed=0, starting_infected=10, device=device)
+        et.reset_launches()
+        state, out = et.make_chunk_runner(world, cfg)(params, state)
+        if device is cuda:
+            assert all(et.launches.values()), et.launches
+        runs.append([state.status.cpu(), state.sched.cpu(), out.seirv.cpu(),
+                     out.exposures_per_oa.cpu()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Where a step of the PyTorch port spends its time on the card.
+
+    python3 tools/profile_torch_step.py [--steps 500] [--profile-from 250]
+                                        [--table FILE]
+
+Runs the main path (the 3,457,142-citizen synthetic world, seed 0, 20,000
+infected, Params.covid()) step by step on one CUDA card, timing each step
+on the host clock around a synchronize, and traces steps
+``--profile-from``.. with torch.profiler.  Prints per-regime step times,
+the device's busy and idle share over the traced window and the device
+time by kernel; ``--table`` writes the profiler's full table to FILE.
+"""
+
+import argparse
+import os
+import statistics
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=500)
+    ap.add_argument("--profile-from", type=int, default=250)
+    ap.add_argument("--table")
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import epidemicsimulator_tpu_torch as et
+    from epidemicsimulator_tpu_torch.engine.fastpath import make_step_tables
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    world = et.generate_synthetic_world(3_457_142, n_output_areas=15_669,
+                                        seed=0).to("cuda")
+    state = et.init_state(world, seed=0, starting_infected=20_000)
+    params, cfg = et.Params.covid(), et.SimConfig()
+    tables = make_step_tables(world)
+    times = {"lockdown": [], "moving, work hour": [], "moving, other hour": []}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    traced_wall = 0.0
+    for i in range(args.steps):
+        if i == args.profile_from:
+            prof.start()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lockdown, hour = state.lockdown, state.hour + 1
+        state, _ = et.step(world, params, cfg, state, tables=tables)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if i >= args.profile_from:
+            traced_wall += dt
+        else:
+            regime = ("lockdown" if lockdown else
+                      "moving, work hour" if 9 <= hour % 24 <= 17
+                      else "moving, other hour")
+            times[regime].append(dt * 1e3)
+    prof.stop()
+
+    card = torch.cuda.get_device_name(0)
+    print(f"card {card}; steps before the trace, host ms/step (median, count):")
+    for k, v in times.items():
+        if v:
+            print(f"  {k}: {statistics.median(v):.3f} ms ({len(v)} steps)")
+    # kernels only: an aten op's own row repeats its kernels' device time
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if evt.device_type == DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    n_traced = args.steps - args.profile_from
+    print(f"traced {n_traced} steps (the tracer slows the host): wall {traced_wall * 1e3 / n_traced:.3f} "
+          f"ms/step, device busy {busy_us / 1e3 / n_traced:.3f} ms/step, "
+          f"idle share {1 - busy_us / 1e6 / traced_wall:.3f}")
+    print("device time by kernel (ms/step, launches/step, name):")
+    for us, count, key in rows[:20]:
+        print(f"  {us / 1e3 / n_traced:8.4f} {count / n_traced:8.2f}  {key[:90]}")
+    if args.table:
+        os.makedirs(os.path.dirname(os.path.abspath(args.table)), exist_ok=True)
+        with open(args.table, "w") as f:
+            f.write(prof.key_averages().table(row_limit=60))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
