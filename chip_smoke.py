@@ -5,8 +5,9 @@
 
 Phases, each printing its elapsed seconds:
 
-1. the card (``nvidia-smi``) and the build of the CUDA kernels (one
-   ``nvcc`` call over ``epidemicsimulator_tpu_torch/csrc/*.cu``);
+1. the card (``nvidia-smi``) and the build of the kernels (one ``nvcc``
+   per ``epidemicsimulator_tpu_torch/csrc/*.cu``, all at once, beside the
+   host compiler's build of the Beneš router, ``csrc/*.cpp``);
 2. each kernel against its plain torch version on the card, at the main
    path's shapes (N = 3,457,142), on inputs made from a numpy seed, with
    its time, the plain version's time and its memory bound;
@@ -14,18 +15,32 @@ Phases, each printing its elapsed seconds:
    citizens, 15,669 OAs, seed 0), ``init_state(seed=0,
    starting_infected=20_000)``, ``Params.covid()``, two chunks of 250
    steps, with each kernel's launches in that run;
-4. the port on the card against the port's plain path on the CPU, on a
+4. the cumsum path, ``sweep`` of ``tools/probe_torch_cumsum.py`` (off
+   the fused step): kernel B4 against its plain version bitwise on lanes
+   of 3,457,142 and 63,000,000; then, with the launch counts set to 0, B3
+   and B4 at a sweep of tile sizes on the 63M lane, each equal to
+   ``torch.cumsum`` and timed beside it;
+5. the Beneš path, ``replay`` of ``tools/probe_torch_benes.py`` (off the
+   fused step): the world's ``work_perm`` routed on the host; with the
+   launch counts set to 0, kernel B5 replays a payload forward and in
+   reverse, equal to the gathers ``x[work_perm]`` and ``x[wpos]`` and
+   timed beside them; then B5 against its plain replay on that table and
+   on random control bytes;
+6. the port on the card against the port's plain path on the CPU, on a
    small world in the deterministic regime, bitwise.
 
-The last two lines are the card's name and power limit and
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and so
+Each kernel's record names the path it runs on; its ``launches`` are
+the count from that path's run, ``main_path_launches`` the count from
+the main path's (0 for B4 and B5).  The last two lines are the card's
+name and power limit and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and so
 does a machine with no CUDA device.  Imports nothing of JAX.
 """
 
+import concurrent.futures
 import dataclasses
+import importlib.util
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -35,6 +50,7 @@ sys.path.insert(0, ROOT)
 N_CITIZENS = 3_457_142
 N_OAS = 15_669
 CHUNK = 250
+B4_TILE = 16_384  # the tile of B4's record
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_INT32_OPS_PER_S = 33.5e12  # non-tensor INT32, H100 SXM data sheet
 T0 = time.perf_counter()
@@ -42,21 +58,6 @@ T0 = time.perf_counter()
 
 def say(msg):
     print(f"[{time.perf_counter() - T0:8.2f}s] {msg}", flush=True)
-
-
-def cuda_ms(fn, reps=20):
-    import torch
-
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound(bytes_moved, int_ops):
@@ -90,6 +91,7 @@ def check_kernels(world_dev, rng):
     import numpy as np
     import torch
 
+    from epidemicsimulator_tpu_torch import runtime
     from epidemicsimulator_tpu_torch.ops import citizen, scans
 
     n = world_dev.n_citizens
@@ -107,10 +109,10 @@ def check_kernels(world_dev, rng):
         source="epidemicsimulator_tpu_torch/csrc/scans.cu",
         replaces="epidemicsimulator_tpu/ops/pallas_scans.py:316",
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: scans.cumsum_i8(v)),
-        plain_ms=cuda_ms(lambda: scans.cumsum_i8_plain(v)),
+        ms=runtime.cuda_ms(lambda: scans.cumsum_i8(v)),
+        plain_ms=runtime.cuda_ms(lambda: scans.cumsum_i8_plain(v)),
         bound_ms=t_b, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.cumsum(v, 0, dtype=torch.int32)),
+        library_ms=runtime.cuda_ms(lambda: torch.cumsum(v, 0, dtype=torch.int32)),
     ))
     say("B3 cumsum_i8: bitwise equal to its plain version")
 
@@ -135,8 +137,8 @@ def check_kernels(world_dev, rng):
         source="epidemicsimulator_tpu_torch/csrc/scans.cu",
         replaces="epidemicsimulator_tpu/ops/pallas_scans.py:339",
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: scans.run_totals_fused(v, sets_world)),
-        plain_ms=cuda_ms(lambda: scans.run_totals_fused_plain(v, sets_world)),
+        ms=runtime.cuda_ms(lambda: scans.run_totals_fused(v, sets_world)),
+        plain_ms=runtime.cuda_ms(lambda: scans.run_totals_fused_plain(v, sets_world)),
         bound_ms=t_b, bound_by=by, library_ms=None,
     ))
     say("B2 run_totals_fused: bitwise equal to its plain version "
@@ -194,18 +196,119 @@ def check_kernels(world_dev, rng):
         source="epidemicsimulator_tpu_torch/csrc/citizen.cu",
         replaces="epidemicsimulator_tpu/ops/pallas_citizen.py:367",
         max_abs_err=max_err,
-        ms=cuda_ms(lambda: citizen.citizen_phase(statics, status, timer,
+        ms=runtime.cuda_ms(lambda: citizen.citizen_phase(statics, status, timer,
                                                  sched, **kw)),
-        plain_ms=cuda_ms(lambda: citizen.citizen_phase_plain(
+        plain_ms=runtime.cuda_ms(lambda: citizen.citizen_phase_plain(
             statics, status, timer, sched, **kw)),
         bound_ms=t_b, bound_by=by, library_ms=None,
     ))
     return records
 
 
+def load_tool(name):
+    """A module of tools/ by file path (tools/ is not a package)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_cumsum_path(rng):
+    """Phase 4: B4 against its plain version, then the cumsum path."""
+    import numpy as np
+    import torch
+
+    from epidemicsimulator_tpu_torch import runtime
+    from epidemicsimulator_tpu_torch.ops import scans
+
+    probe = load_tool("probe_torch_cumsum")
+    dev = torch.device("cuda")
+    lanes = {
+        "0/1, p = 0.3": torch.from_numpy(
+            (rng.random(N_CITIZENS) < 0.3).astype(np.int8)).to(dev),
+        "signed int8": torch.from_numpy(
+            rng.integers(-128, 128, N_CITIZENS).astype(np.int8)).to(dev),
+        "the probe's 63M lane": probe.lane(),
+    }
+    for name, v in lanes.items():
+        for t in (1024, B4_TILE, 1_048_576):
+            got = scans.cumsum_i8_2phase(v, tile_elems=t)
+            if not torch.equal(got, scans.cumsum_i8_2phase_plain(v, tile_elems=t)):
+                raise AssertionError(
+                    f"cumsum_i8_2phase disagrees with its plain version "
+                    f"({name}, tile_elems={t})")
+    say("B4 cumsum_i8_2phase: bitwise equal to its plain version at "
+        f"N = {N_CITIZENS:,} (0/1 and signed lanes) and N = {probe.N_UK:,}, "
+        f"tiles 1024, {B4_TILE}, 1048576")
+    v = lanes["the probe's 63M lane"]
+    res = probe.sweep(v)
+    say(f"cumsum path, N = {probe.N_UK:,}: B4 ms by tile "
+        + ", ".join(f"{t}: {ms:.4f}" for t, ms in res["cumsum_i8_2phase_ms"].items())
+        + f"; B3 {res['cumsum_i8_ms']:.4f} ms; torch.cumsum "
+        f"{res['torch_cumsum_ms']:.4f} ms; B3 and B4 equal to torch.cumsum; "
+        f"launches {res['launches']}")
+    t_b, by = bound(probe.N_UK * (1 + 4), 2 * probe.N_UK)
+    return dict(
+        name="cumsum_i8_2phase", route="cuda",
+        source="epidemicsimulator_tpu_torch/csrc/scans.cu",
+        replaces="epidemicsimulator_tpu/ops/pallas_scans.py:245",
+        path="cumsum", launches=res["launches"]["cumsum_i8_2phase"],
+        max_abs_err=0.0, ms=res["cumsum_i8_2phase_ms"][B4_TILE],
+        plain_ms=runtime.cuda_ms(lambda: scans.cumsum_i8_2phase_plain(
+            v, tile_elems=B4_TILE)),
+        bound_ms=t_b, bound_by=by, library_ms=res["torch_cumsum_ms"],
+    )
+
+
+def check_benes_path(world, world_dev, rng):
+    """Phase 5: the Beneš path on the world's work_perm, then B5 against
+    its plain replay on random control bytes."""
+    import numpy as np
+    import torch
+
+    from epidemicsimulator_tpu_torch.ops import benes
+
+    probe = load_tool("probe_torch_benes")
+    dev = world_dev.work_perm.device
+    n = world_dev.n_citizens
+    x = torch.from_numpy(rng.integers(-128, 128, n).astype(np.int8)).to(dev)
+    res, ctrl, k = probe.replay("work_perm", np.asarray(world.work_perm),
+                                np.asarray(world.wpos), x)
+    say(f"Beneš path: routed work_perm on the host in {res['route_s']:.3f}s "
+        f"(k = {k}, ctrl {res['ctrl_mb']:.3f} MB); forward == x[work_perm], "
+        f"reverse == x[wpos], both == the plain replay, bitwise; "
+        f"{res['forward']['ms']:.4f} / {res['reverse']['ms']:.4f} ms; "
+        f"launches {res['launches']}")
+    noise = torch.from_numpy(
+        rng.integers(0, 256, tuple(ctrl.shape)).astype(np.uint8)).to(dev)
+    for reverse in (False, True):
+        if not torch.equal(benes.benes_permute(x, noise, k, reverse=reverse),
+                           benes.benes_permute_plain(x, noise, k, reverse=reverse)):
+            raise AssertionError(
+                f"benes_permute(reverse={reverse}) != its plain replay on "
+                "random control bytes")
+    say("B5 benes_permute: bitwise equal to its plain replay on random "
+        "control bytes, forward and reverse")
+    # bytes: the payload, the control table, the output; operations: one
+    # select per element and stage
+    t_b, by = bound(n + ctrl.numel() + n, (2 * k - 1) * (1 << k))
+    fwd = res["forward"]
+    return dict(
+        name="benes_permute", route="cuda",
+        source="epidemicsimulator_tpu_torch/csrc/benes.cu",
+        replaces="attic/benes.py:164",
+        path="benes", launches=res["launches"], max_abs_err=0.0,
+        ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=t_b, bound_by=by,
+        library_ms=fwd["gather_ms"],
+    )
+
+
 def main_path(et, world_dev, card):
     """Phase 3: two chunks of the bench's run, counting launches."""
     import torch
+
+    from epidemicsimulator_tpu_torch import runtime
 
     state = et.init_state(world_dev, seed=0, starting_infected=20_000)
     cfg = et.SimConfig(max_steps=2 * CHUNK, chunk_size=CHUNK)
@@ -234,13 +337,16 @@ def main_path(et, world_dev, card):
     counts = dict(et.launches)
     say(f"second chunk {dt * 1e3 / CHUNK:.3f} ms/step on {card}; "
         f"launches in the main path: {counts}")
-    if not all(counts.values()):
+    if not all(counts[name] for name in runtime.MAIN_PATH_KERNELS):
         raise AssertionError("a kernel of the main path was never launched")
+    if any(v for name, v in counts.items()
+           if name not in runtime.MAIN_PATH_KERNELS):
+        raise AssertionError("a kernel off the main path ran in the main path")
     return counts
 
 
 def small_reference(et):
-    """Phase 4: the card against the plain path on the CPU, deterministic
+    """Phase 6: the card against the plain path on the CPU, deterministic
     regime (every draw probability 0, 1 or NaN), 3000 citizens, 60 steps."""
     import numpy as np
     import torch
@@ -281,17 +387,17 @@ def main():
     import epidemicsimulator_tpu_torch as et
     from epidemicsimulator_tpu_torch import runtime
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = runtime.card()
     say(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t = time.perf_counter()
-    path, log = runtime.build(extra_flags=("-Xptxas", "-v"))
-    say(f"built {os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.2f}s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        host = pool.submit(runtime.build_host)
+        path, log = runtime.build(extra_flags=("-Xptxas", "-v"))
+        host_path = host.result()[0]
+    say(f"built {os.path.relpath(path, ROOT)} and "
+        f"{os.path.relpath(host_path, ROOT)} in {time.perf_counter() - t:.2f}s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
 
     t = time.perf_counter()
@@ -305,7 +411,12 @@ def main():
 
     counts = main_path(et, world_dev, smi)
     for rec in records:
-        rec["launches"] = counts[rec["name"]]
+        rec.update(path="main", launches=counts[rec["name"]])
+    records.append(check_cumsum_path(np.random.default_rng(5)))
+    records.append(check_benes_path(world, world_dev, np.random.default_rng(6)))
+    for rec in records:
+        rec["main_path_launches"] = counts[rec["name"]]
+    torch.cuda.synchronize()
     small_reference(et)
 
     print(json.dumps({"kernels": records}))

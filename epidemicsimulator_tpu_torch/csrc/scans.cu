@@ -1,7 +1,9 @@
-// Run totals (B2) and the int8 cumsum (B3) of the fused step, for Hopper.
+// Run totals (B2) and the int8 cumsum (B3) of the fused step, and the
+// two-phase cumsum's apply (B4), for Hopper.
 //
 // Replaces epidemicsimulator_tpu/ops/pallas_scans.py: run_totals_fused
-// (_summary_kernel + _apply_kernel) and cumsum_pallas (_cumsum_kernel).
+// (_summary_kernel + _apply_kernel), cumsum_pallas (_cumsum_kernel) and
+// _cumsum_pallas2 (_cumsum_apply_kernel).
 // On the TPU the grid runs in order and cumsum_pallas carries its running
 // total from block to block in SMEM.  Here blocks run in parallel, so both
 // functions are three passes over tiles of TILE elements:
@@ -18,6 +20,14 @@
 // 1 + 2 * n_sets bytes and writes 4 * n_sets.  The tile is read twice
 // (summary and apply); the summaries are a few KB.  Block-level scans are
 // warp shuffles plus one shared-memory step.
+//
+// B4 keeps the JAX package's split: the caller computes each tile's sum
+// and their exclusive cumsum (plain torch ops, as XLA did), and
+// cumsum_apply rescans each tile from its base.  A tile (tile_elems, a
+// runtime multiple of CHUNK) is one block, which walks it in chunks of
+// CHUNK elements with the running carry in a register; each thread
+// writes its four int32 results as one 16-byte store.  Bound: memory,
+// 1 byte read and 4 written per element, plus one read for the sums.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -266,6 +276,49 @@ int run_scans(const int8_t* v, Masks m, long long n, int* scratch, int* out0,
   return (int)cudaGetLastError();
 }
 
+constexpr int APPLY_ITEMS = 4;
+constexpr int CHUNK = THREADS * APPLY_ITEMS;
+
+// One block per tile: out[i] = base[tile] + (inclusive cumsum of v over
+// the tile up to i).  tile_elems is a multiple of CHUNK.
+__global__ void cumsum_apply(const int8_t* v, const int* base, long long n,
+                             long long tile_elems, int* out) {
+  __shared__ int smem[WARPS];
+  __shared__ int chunk_total;
+  const long long t0 = (long long)blockIdx.x * tile_elems;
+  const long long t1 = t0 + tile_elems < n ? t0 + tile_elems : n;
+  int carry = base[blockIdx.x];
+  for (long long c0 = t0; c0 < t1; c0 += CHUNK) {
+    const long long i0 = c0 + threadIdx.x * APPLY_ITEMS;
+    int vals[APPLY_ITEMS];
+    int tsum = 0;
+#pragma unroll
+    for (int e = 0; e < APPLY_ITEMS; ++e) {
+      vals[e] = i0 + e < t1 ? (int)v[i0 + e] : 0;
+      tsum += vals[e];
+    }
+    // block_scan_excl ends in a barrier, so every thread has read the
+    // previous chunk's total before it is overwritten here
+    int run = carry + block_scan_excl(tsum, 0, Add(), smem);
+    if (threadIdx.x == THREADS - 1) chunk_total = run - carry + tsum;
+#pragma unroll
+    for (int e = 0; e < APPLY_ITEMS; ++e) {
+      run += vals[e];
+      vals[e] = run;
+    }
+    if (i0 + APPLY_ITEMS <= t1) {
+      *reinterpret_cast<int4*>(out + i0) =
+          make_int4(vals[0], vals[1], vals[2], vals[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < APPLY_ITEMS; ++e)
+        if (i0 + e < t1) out[i0 + e] = vals[e];
+    }
+    __syncthreads();
+    carry += chunk_total;
+  }
+}
+
 }  // namespace
 
 // Elements per tile: scratch holds (2 + 4 * n_sets) ints per tile.
@@ -299,4 +352,22 @@ extern "C" int es_run_totals_i8(const void* v, const void* start0,
     return run_scans<2>((const int8_t*)v, m, n, (int*)scratch, (int*)out0,
                         (int*)out1, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// B4's apply: the tiles' elements are a multiple of this.
+extern "C" int es_cumsum_apply_chunk() { return CHUNK; }
+
+// B4's apply: out[i] = base[i / tile_elems] + the inclusive cumsum of v
+// over i's tile up to i.  out must be 16-byte aligned.
+extern "C" int es_cumsum_apply_i8(const void* v, const void* base, void* out,
+                                  long long n, long long tile_elems,
+                                  void* stream) {
+  if (n <= 0 || tile_elems <= 0 || tile_elems % CHUNK != 0 ||
+      ((uintptr_t)out & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (n + tile_elems - 1) / tile_elems;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cumsum_apply<<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)v, (const int*)base, n, tile_elems, (int*)out);
+  return (int)cudaGetLastError();
 }

@@ -1,9 +1,12 @@
-"""Kernels B2 and B3 of the step: contiguous-run totals and the int8
-cumsum, with their plain torch versions.
+"""Kernels B2 and B3 of the step, contiguous-run totals and the int8
+cumsum, and B4, the two-phase int8 cumsum, with their plain torch
+versions.
 
 B2 ``run_totals_fused`` replaces ``epidemicsimulator_tpu/ops/
 pallas_scans.py::run_totals_fused``; B3 ``cumsum_i8`` replaces
-``cumsum_pallas``.  The CUDA kernels are in ``csrc/scans.cu``.  A wrapper
+``cumsum_pallas``; B4 ``cumsum_i8_2phase`` replaces ``_cumsum_pallas2``
+(off the fused step: ``tools/probe_torch_cumsum.py`` runs it beside B3).
+The CUDA kernels are in ``csrc/scans.cu``.  A wrapper
 takes the plain version for a CPU tensor and launches the kernel for a
 CUDA tensor; there is no fallback between the two.
 """
@@ -22,6 +25,19 @@ def _scratch(n: int, n_sets: int, device) -> torch.Tensor:
     return torch.empty(nb * (2 + 4 * n_sets), dtype=torch.int32, device=device)
 
 
+#: B4's tiles hold a multiple of this many elements (the kernel's chunk,
+#: ``es_cumsum_apply_chunk`` in csrc/scans.cu)
+CUMSUM_CHUNK = 1024
+
+
+def _i8_lane(v, name):
+    if v.dtype == torch.bool:
+        v = v.view(torch.int8)
+    if v.dtype != torch.int8 or v.dim() != 1:
+        raise ValueError(f"{name} takes an (N,) int8 or bool lane")
+    return v
+
+
 def cumsum_i8_plain(v):
     return torch.cumsum(v.to(torch.int32), 0, dtype=torch.int32)
 
@@ -31,11 +47,7 @@ def cumsum_i8(v):
     as 0/1) whose total fits int32."""
     if v.device.type == "cpu":
         return cumsum_i8_plain(v)
-    v = v.contiguous()
-    if v.dtype == torch.bool:
-        v = v.view(torch.int8)
-    if v.dtype != torch.int8 or v.dim() != 1:
-        raise ValueError("cumsum_i8 takes an (N,) int8 or bool lane")
+    v = _i8_lane(v.contiguous(), "cumsum_i8")
     n = v.shape[0]
     out = torch.empty(n, dtype=torch.int32, device=v.device)
     if n == 0:
@@ -46,6 +58,64 @@ def cumsum_i8(v):
                            runtime.stream_handle())
     runtime.check(err, "cumsum_i8")
     runtime.launches["cumsum_i8"] += 1
+    return out
+
+
+def _check_tile(tile_elems):
+    if tile_elems <= 0 or tile_elems % CUMSUM_CHUNK:
+        raise ValueError(
+            f"tile_elems must be a positive multiple of {CUMSUM_CHUNK}")
+
+
+def _tile_bases(v, tile_elems):
+    """B4's first phase, in torch: each tile's sum and their exclusive
+    cumsum (int32, one per tile)."""
+    n = v.shape[0]
+    full, tail = divmod(n, tile_elems)
+    sums = torch.empty(full + (tail > 0), dtype=torch.int32, device=v.device)
+    torch.sum(v[:full * tile_elems].view(full, tile_elems), 1,
+              dtype=torch.int32, out=sums[:full])
+    if tail:
+        sums[full] = v[full * tile_elems:].sum(dtype=torch.int32)
+    return torch.cumsum(sums, 0, dtype=torch.int32) - sums
+
+
+def cumsum_i8_2phase_plain(v, *, tile_elems):
+    v = _i8_lane(v.contiguous(), "cumsum_i8_2phase")
+    _check_tile(tile_elems)
+    n = v.shape[0]
+    tiles = torch.zeros(-(-n // tile_elems) * tile_elems, dtype=torch.int32,
+                        device=v.device)
+    tiles[:n] = v
+    tiles = tiles.view(-1, tile_elems)
+    sums = tiles.sum(1, dtype=torch.int32)
+    base = torch.cumsum(sums, 0, dtype=torch.int32) - sums
+    return (torch.cumsum(tiles, 1, dtype=torch.int32)
+            + base[:, None]).view(-1)[:n]
+
+
+def cumsum_i8_2phase(v, *, tile_elems):
+    """Inclusive int32 cumsum of an (N,) int8 (or bool) lane in two
+    phases: the tiles' sums and their exclusive cumsum in torch, then the
+    kernel rescans each tile of ``tile_elems`` elements (a multiple of
+    :data:`CUMSUM_CHUNK`) from its base.  Equals :func:`cumsum_i8`."""
+    if v.device.type == "cpu":
+        return cumsum_i8_2phase_plain(v, tile_elems=tile_elems)
+    v = _i8_lane(v.contiguous(), "cumsum_i8_2phase")
+    _check_tile(tile_elems)
+    n = v.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=v.device)
+    if n == 0:
+        return out
+    base = _tile_bases(v, tile_elems)
+    lib = runtime.library()
+    if lib.es_cumsum_apply_chunk() != CUMSUM_CHUNK:
+        raise RuntimeError("cumsum_i8_2phase: the kernel's chunk differs")
+    err = lib.es_cumsum_apply_i8(v.data_ptr(), base.data_ptr(),
+                                 out.data_ptr(), n, tile_elems,
+                                 runtime.stream_handle())
+    runtime.check(err, "cumsum_i8_2phase")
+    runtime.launches["cumsum_i8_2phase"] += 1
     return out
 
 

@@ -1,15 +1,17 @@
-"""The device of a run, the build of the CUDA kernels, and their launch
+"""The device of a run, the build of the kernels, and their launch
 counts.
 
 The kernels in ``csrc/*.cu`` have a plain C interface.  The first call
-that needs them compiles all the sources with ONE ``nvcc`` call into one
-shared library under ``<checkout>/build/kernels/`` (the file name carries
-a hash of the sources and flags, so a changed source builds anew and a
-finished build is never reused by mistake), and loads it with ``ctypes``.
-Nothing here includes PyTorch's C++ headers: that build takes minutes,
-this one seconds.  The library is written under a temporary name and
-renamed into place, so concurrent builds and interrupted builds leave no
-lock or half-written file behind.
+that needs them compiles every source with its own ``nvcc`` process, all
+started together, and links the objects into one shared library under
+``<checkout>/build/kernels/`` (the file name carries a hash of the
+sources and flags, so a changed source builds anew and a finished build
+is never reused by mistake); ``ctypes`` loads it.  Nothing here includes
+PyTorch's C++ headers: that build takes minutes, this one seconds.  The
+host code in ``csrc/*.cpp`` (the Beneš router) is built the same way
+with the host C++ compiler into a second library.  Each library is
+written in a temporary directory and renamed into place, so concurrent
+builds and interrupted builds leave no lock or half-written file behind.
 """
 
 from __future__ import annotations
@@ -28,18 +30,29 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 #: launches of each kernel since the last :func:`reset_launches`; each
 #: wrapper adds one where it launches its kernel and nowhere else.
-launches = {"citizen_phase": 0, "run_totals_fused": 0, "cumsum_i8": 0}
+launches = {"citizen_phase": 0, "run_totals_fused": 0, "cumsum_i8": 0,
+            "cumsum_i8_2phase": 0, "benes_permute": 0}
+#: the kernels that the fused step launches; the other two run on the
+#: paths of ``tools/probe_torch_cumsum.py`` and ``tools/probe_torch_benes.py``
+MAIN_PATH_KERNELS = ("citizen_phase", "run_totals_fused", "cumsum_i8")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "es_scan_tile_elems": ([], ctypes.c_int),
     "es_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "es_cumsum_i8": ([_P, _P, _P, ctypes.c_longlong, _P], ctypes.c_int),
+    "es_cumsum_apply_chunk": ([], ctypes.c_int),
+    "es_cumsum_apply_i8": (
+        [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P], ctypes.c_int),
+    "es_benes_tile": ([], ctypes.c_int),
+    "es_benes_permute": (
+        [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
     "es_run_totals_i8": (
         [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
         ctypes.c_int,
@@ -53,7 +66,14 @@ _SIGNATURES = {
     ),
 }
 
+_HOST_SIGNATURES = {
+    "es_benes_route": (
+        [ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+         ctypes.POINTER(ctypes.c_uint8)], ctypes.c_int),
+}
+
 _library = None
+_host_library = None
 
 
 def reset_launches() -> None:
@@ -73,16 +93,22 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _library_path(stem: str, flags, sources) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libesim_kernels_{h.hexdigest()[:16]}.so"
+    return _library_path(
+        "libesim_kernels", NVCC_FLAGS,
+        sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")))
+
+
+def host_library_path() -> Path:
+    return _library_path("libesim_host", HOST_FLAGS, sorted(CSRC.glob("*.cpp")))
 
 
 def _nvcc() -> str:
@@ -95,41 +121,90 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(extra_flags: tuple[str, ...] = ()) -> tuple[Path, str]:
-    """Compile ``csrc/*.cu`` into the shared library unless it exists.
-    Returns (path, compiler output)."""
-    path = library_path()
+def _run(cmds: list[list[str]]) -> str:
+    """Runs the commands at once; raises if any fails.  Returns their
+    output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{Path(cmd[0]).name} failed ({proc.returncode}):\n{log}")
+    return "".join(logs)
+
+
+def _build_into(path: Path, make) -> tuple[Path, str]:
+    """Unless ``path`` exists, ``make(tmpdir)`` builds the library in a
+    fresh directory and returns (file, log); the file is renamed to
+    ``path``.  Returns (path, log)."""
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, path)
+        built, log = make(tmp)
+        os.replace(built, path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, proc.stdout + proc.stderr
+        shutil.rmtree(tmp, ignore_errors=True)
+    return path, log
+
+
+def build(extra_flags: tuple[str, ...] = ()) -> tuple[Path, str]:
+    """Compile ``csrc/*.cu`` into the shared library unless it exists:
+    one ``nvcc -c`` per source, all at once, then one link.  Returns
+    (path, compiler output)."""
+    def make(tmp):
+        nvcc = _nvcc()
+        sources = sorted(CSRC.glob("*.cu"))
+        objs = [tmp / (src.stem + ".o") for src in sources]
+        log = _run([[nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj),
+                     str(src)] for src, obj in zip(sources, objs)])
+        lib = tmp / "lib.so"
+        log += _run([[nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(lib),
+                      *map(str, objs)]])
+        return lib, log
+    return _build_into(library_path(), make)
+
+
+def build_host() -> tuple[Path, str]:
+    """Compile ``csrc/*.cpp`` with the host C++ compiler unless the
+    library exists.  Returns (path, compiler output)."""
+    def make(tmp):
+        cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+        if not cxx:
+            raise RuntimeError("no host C++ compiler: set CXX or install g++")
+        lib = tmp / "lib.so"
+        log = _run([[cxx, *HOST_FLAGS, "-o", str(lib),
+                     *map(str, sorted(CSRC.glob("*.cpp")))]])
+        return lib, log
+    return _build_into(host_library_path(), make)
+
+
+def _load(path: Path, signatures):
+    lib = ctypes.CDLL(str(path))
+    for name, (args, res) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = res
+    return lib
 
 
 def library():
     """The loaded kernel library, built on first use."""
     global _library
     if _library is None:
-        lib = ctypes.CDLL(str(build()[0]))
-        for name, (args, res) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = res
-        _library = lib
+        _library = _load(build()[0], _SIGNATURES)
     return _library
+
+
+def host_library():
+    """The loaded host library (the Beneš router), built on first use."""
+    global _host_library
+    if _host_library is None:
+        _host_library = _load(build_host()[0], _HOST_SIGNATURES)
+    return _host_library
 
 
 def check(err: int, name: str) -> None:
@@ -137,6 +212,30 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().es_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds of ``fn()`` on the card over ``reps`` calls after
+    3 warm-ups, from CUDA events around the whole run."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def stream_handle() -> int:

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import epidemicsimulator_tpu_torch as et
-from epidemicsimulator_tpu_torch.ops import citizen, scans
+from epidemicsimulator_tpu_torch import runtime
+from epidemicsimulator_tpu_torch.ops import benes, citizen, scans
 
 pytestmark = pytest.mark.gpu
 
@@ -44,6 +45,64 @@ def test_cumsum_kernel_matches_plain(cuda, n):
     assert torch.equal(scans.cumsum_i8(v), scans.cumsum_i8_plain(v))
     b = v > 1
     assert torch.equal(scans.cumsum_i8(b), scans.cumsum_i8_plain(b))
+
+
+@pytest.mark.parametrize("tile_elems", [1024, 4096, 131_072])
+@pytest.mark.parametrize("n", [1, 1023, 1025, 70_001, 1_000_003])
+def test_cumsum_2phase_kernel_matches_plain(cuda, n, tile_elems):
+    rng = np.random.default_rng(n)
+    v = torch.from_numpy(rng.integers(-128, 128, n).astype(np.int8)).to(cuda)
+    want = scans.cumsum_i8_2phase_plain(v, tile_elems=tile_elems)
+    assert torch.equal(scans.cumsum_i8_2phase(v, tile_elems=tile_elems), want)
+    assert torch.equal(want, scans.cumsum_i8_plain(v))
+    b = v > 0
+    assert torch.equal(scans.cumsum_i8_2phase(b, tile_elems=tile_elems),
+                       scans.cumsum_i8_plain(b))
+
+
+def _inverse(src):
+    inv = np.empty_like(src)
+    inv[src] = np.arange(src.shape[0], dtype=src.dtype)
+    return inv
+
+
+@pytest.mark.parametrize("n", [2, 1000, 40_000, 100_003])
+def test_benes_kernel_matches_plain_and_gather(cuda, n):
+    """Routed tables: k = 10 (middle run only), 16 and 17 (outer stages
+    too); forward and reverse against the plain replay and the gathers."""
+    rng = np.random.default_rng(n)
+    src = rng.permutation(n).astype(np.int64)
+    ctrl, k = benes.route_permutation(src)
+    ctrl = ctrl.to(cuda)
+    x = torch.from_numpy(rng.integers(-128, 128, n).astype(np.int8)).to(cuda)
+    for reverse, idx in ((False, src), (True, _inverse(src))):
+        got = benes.benes_permute(x, ctrl, k, reverse=reverse)
+        assert torch.equal(got, benes.benes_permute_plain(
+            x, ctrl, k, reverse=reverse))
+        assert torch.equal(got, x[torch.from_numpy(idx).to(cuda)])
+
+
+@pytest.mark.parametrize("k", [10, 15, 16, 19])
+def test_benes_kernel_matches_plain_on_random_ctrl(cuda, k):
+    """Control bytes that no router made: each element reads its own bit."""
+    rng = np.random.default_rng(k)
+    n2 = 1 << k
+    ctrl = torch.from_numpy(rng.integers(
+        0, 256, ((2 * k - 1 + 7) // 8, n2)).astype(np.uint8)).to(cuda)
+    for n, n_out in ((n2, n2), (n2 - 3, n2 - 3), (n2 // 2 + 1, 100)):
+        x = torch.from_numpy(rng.integers(-128, 128, n).astype(np.int8)).to(cuda)
+        for reverse in (False, True):
+            assert torch.equal(
+                benes.benes_permute(x, ctrl, k, reverse=reverse, n_out=n_out),
+                benes.benes_permute_plain(x, ctrl, k, reverse=reverse,
+                                          n_out=n_out))
+
+
+def test_benes_kernel_refuses_ctrl_on_another_device(cuda):
+    ctrl, k = benes.route_permutation(np.arange(100))
+    x = torch.zeros(100, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        benes.benes_permute(x, ctrl, k)
 
 
 @pytest.mark.parametrize("n", [1, 4097, 1_000_003])
@@ -95,7 +154,7 @@ def test_citizen_kernel_matches_plain(cuda, h24, move, mask_status, p0):
 def test_main_path_on_card_matches_cpu(cuda):
     """Deterministic regime, 3000 citizens, 48 steps: the card's run
     through the kernels equals the CPU run through the plain versions,
-    and every kernel was launched."""
+    and every kernel of the main path was launched."""
     base = et.Params.covid()
     params = et.Params(
         dataclasses.replace(base.disease, exposure_chance=1.0, exposed_time=6,
@@ -111,7 +170,8 @@ def test_main_path_on_card_matches_cpu(cuda):
         et.reset_launches()
         state, out = et.make_chunk_runner(world, cfg)(params, state)
         if device is cuda:
-            assert all(et.launches.values()), et.launches
+            assert all(et.launches[name] for name in runtime.MAIN_PATH_KERNELS), \
+                et.launches
         runs.append([state.status.cpu(), state.sched.cpu(), out.seirv.cpu(),
                      out.exposures_per_oa.cpu()])
     for a, b in zip(*runs):

@@ -1,6 +1,7 @@
 """The port stands alone: no module of epidemicsimulator_tpu_torch, nor
-chip_smoke.py, nor the card-only tests, imports JAX or the JAX package,
-and the CUDA sources are built without PyTorch's C++ extension machinery."""
+chip_smoke.py, nor the port's tools, nor the card-only tests, imports JAX
+or the JAX package, and the CUDA and host sources are built without
+PyTorch's C++ extension machinery."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "epidemicsimulator_tpu_torch"
-STANDALONE = sorted(PACKAGE.rglob("*.py")) + [
+STANDALONE = sorted(PACKAGE.rglob("*.py")) + sorted(
+    (ROOT / "tools").glob("*torch*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "epidemicsimulator_tpu")
@@ -36,7 +38,8 @@ def test_imports_nothing_of_jax(path):
 def test_kernels_use_plain_nvcc_build():
     sources = list((PACKAGE / "csrc").glob("*.cu"))
     assert len(sources) >= 2
-    for src in sources + list((PACKAGE / "csrc").glob("*.cuh")):
+    for src in sources + [p for ext in ("*.cuh", "*.cpp")
+                          for p in (PACKAGE / "csrc").glob(ext)]:
         assert "torch/extension.h" not in src.read_text()
     for path in PACKAGE.rglob("*.py"):
         assert "cpp_extension" not in path.read_text(), path

@@ -1,4 +1,4 @@
-"""The plain torch versions of kernels B1, B2 and B3 against the JAX
+"""The plain torch versions of kernels B1, B2, B3 and B4 against the JAX
 package's Pallas kernels (interpret mode), on the CPU.
 
 On the CPU each wrapper runs its plain version; on the card the same
@@ -49,6 +49,43 @@ def test_b3_cumsum_and_range_totals_match_pallas(n):
                                          interpret=True)
     np.testing.assert_array_equal(
         t_scans.range_totals(T(v), T(lo), T(hi)).numpy(), np.asarray(want_r))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 5000, 70_001])
+def test_b4_two_phase_cumsum_matches_pallas(n):
+    """Tiles of 8 x 128 elements, a 0/1 lane, its bool form and a signed
+    int8 lane, bitwise against the JAX two-phase cumsum and B3."""
+    rng = np.random.default_rng(n)
+    for v in ((rng.random(n) < 0.4).astype(np.int8),
+              rng.integers(-128, 128, n).astype(np.int8)):
+        want = np.asarray(j_scans._cumsum_pallas2(
+            jnp.asarray(v), tile_rows=8, interpret=True))
+        np.testing.assert_array_equal(want, np.cumsum(v, dtype=np.int32))
+        got = t_scans.cumsum_i8_2phase(T(v), tile_elems=8 * 128)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(t_scans.cumsum_i8(T(v)).numpy(), want)
+    b = (rng.random(n) < 0.5)
+    np.testing.assert_array_equal(
+        t_scans.cumsum_i8_2phase(T(b), tile_elems=1024).numpy(),
+        np.cumsum(b, dtype=np.int32))
+
+
+@pytest.mark.parametrize("tile_elems", [2048, 4096, 131_072])
+def test_b4_matches_b3_at_other_tiles(tile_elems):
+    for n in (1, tile_elems - 1, tile_elems, 3 * tile_elems + 5, 200_001):
+        v = T(np.random.default_rng(n).integers(-128, 128, n).astype(np.int8))
+        assert torch.equal(t_scans.cumsum_i8_2phase(v, tile_elems=tile_elems),
+                           t_scans.cumsum_i8(v))
+
+
+def test_b4_refuses_bad_input():
+    v = torch.zeros(5000, dtype=torch.int8)
+    for tile in (0, 1000, 1536):
+        with pytest.raises(ValueError):
+            t_scans.cumsum_i8_2phase(v, tile_elems=tile)
+    with pytest.raises(ValueError):
+        t_scans.cumsum_i8_2phase(v.int(), tile_elems=1024)
+    assert t_scans.cumsum_i8_2phase(v[:0], tile_elems=1024).shape == (0,)
 
 
 @pytest.mark.parametrize("n", [96, 4096, 70_000])
