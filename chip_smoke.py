@@ -15,11 +15,13 @@ Phases, each printing its elapsed seconds:
    citizens, 15,669 OAs, seed 0), ``init_state(seed=0,
    starting_infected=20_000)``, ``Params.covid()``, two chunks of 250
    steps, with each kernel's launches in that run;
-4. the cumsum path, ``sweep`` of ``tools/probe_torch_cumsum.py`` (off
-   the fused step): kernel B4 against its plain version bitwise on lanes
-   of 3,457,142 and 63,000,000; then, with the launch counts set to 0, B3
-   and B4 at a sweep of tile sizes on the 63M lane, each equal to
-   ``torch.cumsum`` and timed beside it;
+4. the cumsum path, ``sweep`` and ``turns`` of
+   ``tools/probe_torch_cumsum.py`` (off the fused step): kernel B4
+   against its plain version bitwise on lanes of 3,457,142 and
+   63,000,000; then, with the launch counts set to 0, B3 and B4 at a
+   sweep of tile sizes on the 63M lane, each equal to ``torch.cumsum``
+   and timed beside it; then B3, B4 and ``torch.cumsum`` timed in turns
+   at both sizes;
 5. the Beneš path, ``replay`` of ``tools/probe_torch_benes.py`` (off the
    fused step): the world's ``work_perm`` routed on the host; with the
    launch counts set to 0, kernel B5 replays a payload forward and in
@@ -50,7 +52,6 @@ sys.path.insert(0, ROOT)
 N_CITIZENS = 3_457_142
 N_OAS = 15_669
 CHUNK = 250
-B4_TILE = 16_384  # the tile of B4's record
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_INT32_OPS_PER_S = 33.5e12  # non-tensor INT32, H100 SXM data sheet
 T0 = time.perf_counter()
@@ -214,7 +215,7 @@ def load_tool(name):
     return mod
 
 
-def check_cumsum_path(rng):
+def check_cumsum_path(rng, card):
     """Phase 4: B4 against its plain version, then the cumsum path."""
     import numpy as np
     import torch
@@ -232,7 +233,7 @@ def check_cumsum_path(rng):
         "the probe's 63M lane": probe.lane(),
     }
     for name, v in lanes.items():
-        for t in (1024, B4_TILE, 1_048_576):
+        for t in (1024, probe.B4_TILE, 1_048_576):
             got = scans.cumsum_i8_2phase(v, tile_elems=t)
             if not torch.equal(got, scans.cumsum_i8_2phase_plain(v, tile_elems=t)):
                 raise AssertionError(
@@ -240,7 +241,7 @@ def check_cumsum_path(rng):
                     f"({name}, tile_elems={t})")
     say("B4 cumsum_i8_2phase: bitwise equal to its plain version at "
         f"N = {N_CITIZENS:,} (0/1 and signed lanes) and N = {probe.N_UK:,}, "
-        f"tiles 1024, {B4_TILE}, 1048576")
+        f"tiles 1024, {probe.B4_TILE}, 1048576")
     v = lanes["the probe's 63M lane"]
     res = probe.sweep(v)
     say(f"cumsum path, N = {probe.N_UK:,}: B4 ms by tile "
@@ -248,20 +249,27 @@ def check_cumsum_path(rng):
         + f"; B3 {res['cumsum_i8_ms']:.4f} ms; torch.cumsum "
         f"{res['torch_cumsum_ms']:.4f} ms; B3 and B4 equal to torch.cumsum; "
         f"launches {res['launches']}")
+    for name, lane in (("N = 3,457,142", lanes["0/1, p = 0.3"]),
+                       (f"N = {probe.N_UK:,}", v)):
+        t, dev = probe.turns(lane)
+        say(f"cumsum in turns on {card}, {name}, ms per round: " + "; ".join(
+            f"{fn} {' '.join(f'{ms:.4f}' for ms in ms_list)}"
+            for fn, ms_list in t.items()) + "; device ms per call: "
+            + "; ".join(f"{fn} {ms:.4f}" for fn, ms in dev.items()))
     t_b, by = bound(probe.N_UK * (1 + 4), 2 * probe.N_UK)
     return dict(
         name="cumsum_i8_2phase", route="cuda",
         source="epidemicsimulator_tpu_torch/csrc/scans.cu",
         replaces="epidemicsimulator_tpu/ops/pallas_scans.py:245",
         path="cumsum", launches=res["launches"]["cumsum_i8_2phase"],
-        max_abs_err=0.0, ms=res["cumsum_i8_2phase_ms"][B4_TILE],
+        max_abs_err=0.0, ms=res["cumsum_i8_2phase_ms"][probe.B4_TILE],
         plain_ms=runtime.cuda_ms(lambda: scans.cumsum_i8_2phase_plain(
-            v, tile_elems=B4_TILE)),
+            v, tile_elems=probe.B4_TILE)),
         bound_ms=t_b, bound_by=by, library_ms=res["torch_cumsum_ms"],
     )
 
 
-def check_benes_path(world, world_dev, rng):
+def check_benes_path(world, world_dev, rng, card):
     """Phase 5: the Beneš path on the world's work_perm, then B5 against
     its plain replay on random control bytes."""
     import numpy as np
@@ -278,7 +286,7 @@ def check_benes_path(world, world_dev, rng):
     say(f"Beneš path: routed work_perm on the host in {res['route_s']:.3f}s "
         f"(k = {k}, ctrl {res['ctrl_mb']:.3f} MB); forward == x[work_perm], "
         f"reverse == x[wpos], both == the plain replay, bitwise; "
-        f"{res['forward']['ms']:.4f} / {res['reverse']['ms']:.4f} ms; "
+        f"{res['forward']['ms']:.4f} / {res['reverse']['ms']:.4f} ms on {card}; "
         f"launches {res['launches']}")
     noise = torch.from_numpy(
         rng.integers(0, 256, tuple(ctrl.shape)).astype(np.uint8)).to(dev)
@@ -412,8 +420,9 @@ def main():
     counts = main_path(et, world_dev, smi)
     for rec in records:
         rec.update(path="main", launches=counts[rec["name"]])
-    records.append(check_cumsum_path(np.random.default_rng(5)))
-    records.append(check_benes_path(world, world_dev, np.random.default_rng(6)))
+    records.append(check_cumsum_path(np.random.default_rng(5), smi))
+    records.append(check_benes_path(world, world_dev, np.random.default_rng(6),
+                                    smi))
     for rec in records:
         rec["main_path_launches"] = counts[rec["name"]]
     torch.cuda.synchronize()

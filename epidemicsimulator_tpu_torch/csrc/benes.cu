@@ -10,88 +10,62 @@
 // before the stage, so the replay is exact for any control bytes, routed
 // or not.  Reverse mode runs the stages in reverse order.
 //
-// Distances fall from 2^(k-1) to 1 and rise again, so the stages with
-// d < TILE form one contiguous middle run.  One launch (benes_middle)
-// runs that whole run with each block's TILE elements in shared memory;
-// each thread first gathers its elements' control bits for the run into
-// one 32-bit word.  Every other stage (d >= TILE) is one launch of
-// benes_outer, a pass over device memory that handles 16 elements per
-// thread with 16-byte loads and a byte-wise select.  At k = 22 that is
-// 7 + 1 + 7 launches, ping-ponging between two buffers of n2 bytes.
-//
 // Bound: memory.  The function reads the payload once, the control
-// table once ((2k-1+7)/8 bytes per element) and writes the output once;
-// this design reads the payload twice and one control row per outer
-// stage, most of it from L2 at n2 = 2^22.
+// table once ((2k-1+7)/8 bytes per element) and writes the output once:
+// at k = 22 that is 3.46 MB + 25.2 MB + 4.19 MB, 0.0096 ms at 3.35 TB/s.
+// The control table is 6x the payload, so no replay comes near a gather
+// of the payload (0.019 ms on this card), which reads 3.46 MB of data
+// and 27.7 MB of int64 indices that an L2 of 50 MB keeps.
+//
+// Design.  The stages run in a few passes, each one launch.  A block
+// reads its tile once (16-byte loads), reads the matching bytes of each
+// control row its stages need (at most 4 rows, kept in registers), runs
+// its stages and writes its tile once.  Payload and control share byte
+// lanes, so a stage is a byte-wise select on 32-bit words against the
+// partner's words, and the control bits are never transposed.  The
+// partner of a stage sits, by the stage's bit in the tile,
+//
+//   in the thread's own bytes (a byte or word swap),
+//   in another lane of the warp (__shfl_xor_sync of its words), or
+//   in another warp, through shared memory: one barrier a stage, with
+//   two buffers so that a stage's writes never meet the previous stage's
+//   reads.
+//
+// The middle pass takes 8 KB contiguous tiles, 512 threads x 16 bytes, so
+// it runs every stage with d < 8 KB: 25 stages at k >= 13, 8 of them
+// through shared memory (tile bits 0-3 in the thread, 4-8 across lanes,
+// 9-12 across warps).  An outer pass takes a tile of 16 KB that is not
+// contiguous: 2^col contiguous bytes in each of 2^nb segments, whose
+// index is nb consecutive bits of the element index (col + nb = 14,
+// col >= 5), 512 threads x 32 bytes, so every thread reads whole 32-byte
+// sectors; it runs every stage on those nb bits.  At k = 22 the 9 stages
+// on each side with d >= 8 KB take one outer pass each: 3 launches in
+// all, against 15 before this design.  Blocks read and write only their
+// own elements, so every pass after the first runs in place in `out`,
+// and the first pass reads the unpadded payload, taking 0 past its end
+// (no padding copy).  Three middle blocks (at most 42 registers, 16 KB
+// of shared memory) or two outer blocks (64 registers, 32 KB) share an
+// SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int LOG_TILE = 15;
-constexpr int TILE = 1 << LOG_TILE;    // 32 KB of int8 in shared memory
-constexpr int MID_THREADS = 1024;
-constexpr int PER = TILE / MID_THREADS;  // elements per thread
-constexpr int OUTER_THREADS = 256;
+constexpr int LOG_TILE = 13;                   // a middle pass's tile
+constexpr int THREADS = (1 << LOG_TILE) / 16;  // 512
+constexpr int LOG_OUTER_TILE = LOG_TILE + 1;   // an outer pass's tile
+constexpr int MAX_OUTER_BITS = LOG_OUTER_TILE - 5;  // 32-byte columns
+constexpr unsigned FULL = 0xffffffffu;
 
-__host__ __device__ inline long long stage_distance(int j, int k) {
-  return j < k ? 1LL << (k - 1 - j) : 1LL << (j - k + 1);
-}
-
-// Stages j_lo..j_hi (d < tile) on blocks of `tile` elements; forward
-// runs them in increasing j, reverse in decreasing j.
-__global__ void __launch_bounds__(MID_THREADS)
-benes_middle(const int8_t* in, int8_t* out, const uint8_t* ctrl, long long n2,
-             int k, int tile, int j_lo, int j_hi, int reverse) {
-  __shared__ int8_t sh[TILE];
-  const long long base = (long long)blockIdx.x * tile;
-  uint32_t bits[PER];
-#pragma unroll
-  for (int e = 0; e < PER; ++e) {
-    const int i = threadIdx.x + e * MID_THREADS;
-    bits[e] = 0;
-    if (i < tile) {
-      sh[i] = in[base + i];
-      for (int g = j_lo >> 3; g <= j_hi >> 3; ++g) {
-        const uint32_t c = ctrl[g * n2 + base + i];
-        const int j0 = g * 8 > j_lo ? g * 8 : j_lo;
-        const int j1 = g * 8 + 7 < j_hi ? g * 8 + 7 : j_hi;
-        for (int j = j0; j <= j1; ++j)
-          bits[e] |= ((c >> (j & 7)) & 1u) << (j - j_lo);
-      }
-    }
-  }
-  __syncthreads();
-  const int n_run = j_hi - j_lo + 1;
-  for (int s = 0; s < n_run; ++s) {
-    const int j = reverse ? j_hi - s : j_lo + s;
-    const int d = (int)stage_distance(j, k);
-    // the stage's results, four bytes to a register, until every
-    // thread has read its partners' values from before the stage
-    uint32_t y[PER / 4];
-#pragma unroll
-    for (int e = 0; e < PER; ++e) {
-      const int i = threadIdx.x + e * MID_THREADS;
-      uint8_t v = 0;
-      if (i < tile)
-        v = (uint8_t)((bits[e] >> (j - j_lo)) & 1u ? sh[i ^ d] : sh[i]);
-      if (e % 4 == 0) y[e / 4] = 0;
-      y[e / 4] |= (uint32_t)v << (8 * (e % 4));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < PER; ++e) {
-      const int i = threadIdx.x + e * MID_THREADS;
-      if (i < tile) sh[i] = (int8_t)(y[e / 4] >> (8 * (e % 4)));
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int e = 0; e < PER; ++e) {
-    const int i = threadIdx.x + e * MID_THREADS;
-    if (i < tile) out[base + i] = sh[i];
-  }
-}
+// The stages j0, j0 + dir, ... (n_st of them), on the element bits that
+// the tile covers: tile bits [0, col) are element bits [0, col), tile
+// bits [col, col + nb) are element bits [b_lo, b_lo + nb).  Their control
+// bits lie in rows row0 .. row0 + NROWS - 1.
+struct Pass {
+  int j0, n_st, dir;
+  int col, b_lo, nb;
+  int row0;
+};
 
 __device__ inline uint32_t select_bytes(uint32_t a, uint32_t b, uint32_t c,
                                         int bit) {
@@ -99,71 +73,200 @@ __device__ inline uint32_t select_bytes(uint32_t a, uint32_t b, uint32_t c,
   return (b & take) | (a & ~take);
 }
 
-// One stage with d >= TILE: 16 elements per thread (d and the thread's
-// offset are multiples of 16, so partner chunks are whole and aligned).
-__global__ void benes_outer(const int8_t* in, int8_t* out,
-                            const uint8_t* ctrl_row, int bit, long long d,
-                            long long n2) {
-  const long long i =
-      ((long long)blockIdx.x * OUTER_THREADS + threadIdx.x) * 16;
-  if (i >= n2) return;
-  const uint4 a = *reinterpret_cast<const uint4*>(in + i);
-  const uint4 b = *reinterpret_cast<const uint4*>(in + (i ^ d));
-  const uint4 c = *reinterpret_cast<const uint4*>(ctrl_row + i);
-  uint4 y;
-  y.x = select_bytes(a.x, b.x, c.x, bit);
-  y.y = select_bytes(a.y, b.y, c.y, bit);
-  y.z = select_bytes(a.z, b.z, c.z, bit);
-  y.w = select_bytes(a.w, b.w, c.w, bit);
-  *reinterpret_cast<uint4*>(out + i) = y;
+// The 16 partner bytes i ^ 2^lb (lb < 4) of the thread's own 16 bytes.
+__device__ inline uint4 swap_within(uint4 a, int lb) {
+  switch (lb) {
+    case 0:
+      return make_uint4(__byte_perm(a.x, 0, 0x2301), __byte_perm(a.y, 0, 0x2301),
+                        __byte_perm(a.z, 0, 0x2301), __byte_perm(a.w, 0, 0x2301));
+    case 1:
+      return make_uint4(__byte_perm(a.x, 0, 0x1032), __byte_perm(a.y, 0, 0x1032),
+                        __byte_perm(a.z, 0, 0x1032), __byte_perm(a.w, 0, 0x1032));
+    case 2:
+      return make_uint4(a.y, a.x, a.w, a.z);
+    default:
+      return make_uint4(a.z, a.w, a.x, a.y);
+  }
+}
+
+// 16 bytes of `in` from element g on, 0 at and past n_in.
+__device__ inline uint4 load16(const int8_t* in, long long n_in, long long g) {
+  if (g + 16 <= n_in && ((uintptr_t)in & 15) == 0)
+    return *reinterpret_cast<const uint4*>(in + g);
+  // the payload's end, or a payload that is not 16-byte aligned
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    if (e % 4 == 0) w[e / 4] = 0;
+    if (g + e < n_in) w[e / 4] |= (uint32_t)(uint8_t)in[g + e] << (8 * (e % 4));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One pass: `in` holds n_in valid bytes (0 beyond); `out` has n2.  `in`
+// may be `out` (each block reads its elements before it writes them and
+// no other block touches them).  A middle pass gives each thread 16
+// contiguous bytes of an 8 KB tile; an outer pass gives it 32 (V = 2
+// words), a whole 32-byte sector of its column, in a tile of 16 KB.
+template <int NROWS, bool OUTER>
+__device__ inline void run_pass(const int8_t* in, long long n_in, int8_t* out,
+                                const uint8_t* __restrict__ ctrl, long long n2,
+                                int k, const Pass& p) {
+  constexpr int V = OUTER ? 2 : 1, LOG_V = OUTER ? 1 : 0;
+  __shared__ uint4 sh[2][V][THREADS];
+  const int t = threadIdx.x;
+  const long long blk = blockIdx.x;
+  long long g;  // element index of the thread's first byte
+  if (OUTER) {
+    const int low = p.b_lo - p.col;  // block bits below the segment bits
+    const long long base = ((blk & ((1LL << low) - 1)) << p.col) |
+                           ((blk >> low) << (p.b_lo + p.nb));
+    g = base | ((long long)(t >> (p.col - 5)) << p.b_lo) |
+        ((t * 32) & ((1 << p.col) - 1));
+  } else {
+    g = (blk << p.col) + t * 16;
+  }
+  uint4 a[V], c[NROWS][V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) a[v] = load16(in, n_in, g + 16 * v);
+#pragma unroll
+  for (int r = 0; r < NROWS; ++r)
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      c[r][v] = __ldg(reinterpret_cast<const uint4*>(
+          ctrl + (p.row0 + r) * n2 + g + 16 * v));
+
+  int s = 0, buf = 0;
+#pragma unroll
+  for (int r = 0; r < NROWS; ++r) {
+    // rows in the order the stages run: forward up, reverse down
+    const int row = p.dir > 0 ? r : NROWS - 1 - r;
+    uint4 cw[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) cw[v] = p.dir > 0 ? c[r][v] : c[NROWS - 1 - r][v];
+    for (; s < p.n_st; ++s) {
+      const int j = p.j0 + s * p.dir;
+      if (j / 8 != p.row0 + row) break;
+      const int gb = j < k ? k - 1 - j : j - k + 1;  // d_j = 2^gb
+      const int lb = OUTER ? gb - p.b_lo + p.col : gb;  // its bit in the tile
+      uint4 q[V];
+      if (!OUTER && lb < 4) {  // an outer stage has lb >= col >= 5
+        q[0] = swap_within(a[0], lb);
+      } else if (lb < 9 + LOG_V) {
+        const int m = 1 << (lb - 4 - LOG_V);
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          q[v] = make_uint4(
+              __shfl_xor_sync(FULL, a[v].x, m), __shfl_xor_sync(FULL, a[v].y, m),
+              __shfl_xor_sync(FULL, a[v].z, m), __shfl_xor_sync(FULL, a[v].w, m));
+      } else {  // the same branch in every thread of the block
+#pragma unroll
+        for (int v = 0; v < V; ++v) sh[buf][v][t] = a[v];
+        __syncthreads();
+#pragma unroll
+        for (int v = 0; v < V; ++v) q[v] = sh[buf][v][t ^ (1 << (lb - 4 - LOG_V))];
+        buf ^= 1;
+      }
+      const int bit = j & 7;
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        a[v] = make_uint4(select_bytes(a[v].x, q[v].x, cw[v].x, bit),
+                          select_bytes(a[v].y, q[v].y, cw[v].y, bit),
+                          select_bytes(a[v].z, q[v].z, cw[v].z, bit),
+                          select_bytes(a[v].w, q[v].w, cw[v].w, bit));
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    *reinterpret_cast<uint4*>(out + g + 16 * v) = a[v];
+}
+
+// Stages with d < TILE, on contiguous tiles.
+template <int NROWS>
+__global__ void __launch_bounds__(THREADS, 3)
+benes_middle(const int8_t* in, long long n_in, int8_t* out,
+             const uint8_t* __restrict__ ctrl, long long n2, int k, Pass p) {
+  run_pass<NROWS, false>(in, n_in, out, ctrl, n2, k, p);
+}
+
+// Stages on nb consecutive bits >= LOG_TILE, on tiles of 2^nb segments.
+template <int NROWS>
+__global__ void __launch_bounds__(THREADS, 2)
+benes_outer(const int8_t* in, long long n_in, int8_t* out,
+            const uint8_t* __restrict__ ctrl, long long n2, int k, Pass p) {
+  run_pass<NROWS, true>(in, n_in, out, ctrl, n2, k, p);
+}
+
+using PassKernel = void (*)(const int8_t*, long long, int8_t*,
+                           const uint8_t*, long long, int, Pass);
+// by the number of control rows a pass reads, 1 to 4
+const PassKernel MIDDLE[] = {benes_middle<1>, benes_middle<2>,
+                                 benes_middle<3>, benes_middle<4>};
+const PassKernel OUTER[] = {benes_outer<1>, benes_outer<2>};
+
+// Splits the stages js..je (forward order, all on one side of the
+// middle) into passes of at most MAX_OUTER_BITS bits each, as even as
+// possible, and appends them to `passes`.
+int split_outer(int js, int je, int k, Pass* passes, int n) {
+  const int bits = je - js + 1;
+  if (bits <= 0) return n;
+  const int parts = (bits + MAX_OUTER_BITS - 1) / MAX_OUTER_BITS;
+  for (int i = 0, j = js; i < parts; ++i) {
+    const int nb = bits / parts + (i < bits % parts);
+    const int last = j + nb - 1;
+    // the stages' element bits: k-1-j falling before the middle, j-k+1
+    // rising after it; either way the group is nb consecutive bits
+    const int b_lo = j < k ? k - 1 - last : j - k + 1;
+    passes[n++] = Pass{j, nb, 1, LOG_OUTER_TILE - nb, b_lo, nb, j / 8};
+    j = last + 1;
+  }
+  return n;
 }
 
 }  // namespace
 
-// Elements held in shared memory by one block of the middle run.
-extern "C" int es_benes_tile() { return TILE; }
-
-// Replays the 2k-1 stages on `in` (n2 = 2^k int8, left unchanged) into
-// `out`, using `tmp` (n2 bytes) between stages.  ctrl is the packed
-// ((2k-1+7)/8, n2) uint8 table.  All four buffers must be 16-byte
-// aligned and distinct.  The number of launches is odd, so the first
-// writes `out` and the last does too.
-extern "C" int es_benes_permute(const void* in, void* out, void* tmp,
+// Replays the 2k-1 stages on `in` (n_in <= 2^k int8, read as 0 past its
+// end, left unchanged) into `out` (2^k bytes, 16-byte aligned).  ctrl is
+// the packed ((2k-1+7)/8, 2^k) uint8 table, 16-byte aligned.  `in` may
+// have any alignment but must not overlap `out`.
+extern "C" int es_benes_permute(const void* in, long long n_in, void* out,
                                 const void* ctrl, int k, int reverse,
                                 void* stream) {
-  if (k < 10 || k > 30 || ((uintptr_t)in | (uintptr_t)out |
-                           (uintptr_t)tmp | (uintptr_t)ctrl) & 15)
+  if (k < 10 || k > 30 || n_in < 0 || n_in > (1LL << k) ||
+      (((uintptr_t)out | (uintptr_t)ctrl) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const long long n2 = 1LL << k;
   const int log_tile = k < LOG_TILE ? k : LOG_TILE;
-  const int j_lo = k - log_tile, j_hi = k + log_tile - 2, last = 2 * k - 2;
-  const uint8_t* c = (const uint8_t*)ctrl;
+  const int outer_bits = k - log_tile;
+  // the passes in forward order: outer stages 0..outer_bits-1, the middle
+  // run, outer stages 2k-1-outer_bits..2k-2
+  Pass passes[8];
+  int np = split_outer(0, outer_bits - 1, k, passes, 0);
+  const int mid_lo = outer_bits, mid_hi = outer_bits + 2 * log_tile - 2;
+  passes[np++] = Pass{mid_lo, mid_hi - mid_lo + 1, 1, log_tile, log_tile, 0,
+                      mid_lo / 8};
+  np = split_outer(mid_hi + 1, 2 * k - 2, k, passes, np);
+  cudaStream_t st = (cudaStream_t)stream;
   const int8_t* src = (const int8_t*)in;
-  int8_t* bufs[2] = {(int8_t*)out, (int8_t*)tmp};
-  int w = 0;  // index of the buffer the next launch writes
-  auto outer = [&](int j) {
-    const unsigned blocks = (unsigned)(n2 / 16 / OUTER_THREADS);
-    benes_outer<<<blocks, OUTER_THREADS, 0, st>>>(
-        src, bufs[w], c + (long long)(j / 8) * n2, j % 8,
-        stage_distance(j, k), n2);
-    src = bufs[w];
-    w ^= 1;
-  };
-  auto middle = [&]() {
-    benes_middle<<<(unsigned)(n2 >> log_tile), MID_THREADS, 0, st>>>(
-        src, bufs[w], c, n2, k, 1 << log_tile, j_lo, j_hi, reverse);
-    src = bufs[w];
-    w ^= 1;
-  };
-  if (!reverse) {
-    for (int j = 0; j < j_lo; ++j) outer(j);
-    middle();
-    for (int j = j_hi + 1; j <= last; ++j) outer(j);
-  } else {
-    for (int j = last; j > j_hi; --j) outer(j);
-    middle();
-    for (int j = j_lo - 1; j >= 0; --j) outer(j);
+  long long n_src = n_in;
+  for (int i = 0; i < np; ++i) {
+    Pass p = passes[reverse ? np - 1 - i : i];
+    const int j_last = p.j0 + p.n_st - 1;
+    const int rows = j_last / 8 - p.j0 / 8 + 1;
+    if (reverse) {
+      p.j0 = j_last;
+      p.dir = -1;
+    }
+    const bool outer = p.nb > 0;
+    if (rows > (outer ? 2 : 4)) return (int)cudaErrorInvalidValue;
+    const PassKernel kernel = (outer ? OUTER : MIDDLE)[rows - 1];
+    const int log_t = outer ? LOG_OUTER_TILE : log_tile;
+    kernel<<<(unsigned)(n2 >> log_t), outer ? THREADS : (1 << log_tile) / 16,
+             0, st>>>(src, n_src, (int8_t*)out, (const uint8_t*)ctrl, n2, k, p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    src = (const int8_t*)out;
+    n_src = n2;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }

@@ -44,7 +44,7 @@ from ..ops import maths, scans, segments, threefry
 from ..ops.citizen import CitizenStatics, citizen_phase, make_citizen_statics
 from ..ops.hashrng import hash_bits, hash_uniform
 from ..ops.select import bisect_threshold
-from .state import SimState
+from .state import SimState, check_formulation
 from .step import StepOutput
 
 
@@ -151,7 +151,10 @@ def _next_mask_status(ms, pct, th_pt, th_all):
 def fast_step(world, params, cfg, state: SimState, tables=None):
     """One hour from ``state``; returns ``(new_state, StepOutput)``.
     ``world`` holds tensors on the state's device; ``tables`` are its
-    :func:`make_step_tables`, built here when not given."""
+    :func:`make_step_tables`, built here when not given.  Raises
+    NotImplementedError for a world of 16M citizens or more
+    (:func:`~.state.check_formulation`)."""
+    check_formulation(world.n_citizens)
     d, th = params.disease, params.thresholds
     n = world.n_citizens
     dev = state.status.device

@@ -22,6 +22,24 @@ from ..runtime import resolve_device
 
 SCHED_LANES = ("at_work", "on_bus", "bus_to_work", "at_work_ws", "on_bus_ws")
 
+#: From this many citizens on, the JAX package's default step picks
+#: vaccinations from a fixed-priority pool with a threefry stream of its
+#: own (its ``engine/fastpath.py::wants_fixed_priority_vax``); the port has
+#: only the fresh selector that the JAX step runs below it.
+FIXED_PRIORITY_VAX_MIN_CITIZENS = 16_000_000
+
+
+def check_formulation(n_citizens: int) -> None:
+    """Raise NotImplementedError for a world on which the JAX package's
+    default step is a formulation the port does not have, rather than
+    run another one silently."""
+    if n_citizens >= FIXED_PRIORITY_VAX_MIN_CITIZENS:
+        raise NotImplementedError(
+            f"a world of {n_citizens:,} citizens: from "
+            f"{FIXED_PRIORITY_VAX_MIN_CITIZENS:,} on, the JAX package "
+            "vaccinates from the fixed-priority pool, which the port does "
+            "not have yet (ROADMAP.md Queue 1 item 6)")
+
 
 @dataclasses.dataclass(frozen=True)
 class SimState:
@@ -57,7 +75,9 @@ def init_state(world, *, seed: int = 0,
     """Initial state with ``starting_infected`` seeded infections: a
     uniform output area, then a uniform citizen in it
     (simulator_builder.rs:1111-1142), drawn on the host with numpy exactly
-    as the JAX package draws them."""
+    as the JAX package draws them.  Raises NotImplementedError for a
+    world of 16M citizens or more (:func:`check_formulation`)."""
+    check_formulation(world.n_citizens)
     dev = resolve_device(device)
     n = world.n_citizens
     rng = np.random.default_rng(seed if np_seed is None else np_seed)

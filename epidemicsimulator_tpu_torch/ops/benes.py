@@ -7,7 +7,8 @@ one routed table drives both packages: ``n`` elements are padded to
 ``2**k`` with ``k = max(10, ceil(log2 n))`` and an identity tail, and the
 control table is ``((2k-1+7)//8, 2**k)`` uint8 with stage j's bit in bit
 ``j % 8`` of row ``j // 8``.  The router is host C++
-(``csrc/benes_route.cpp``), the replay a CUDA kernel (``csrc/benes.cu``).
+(``csrc/benes_route.cpp``), the replay CUDA kernels (``csrc/benes.cu``:
+a few passes, each running every stage that one tile layout holds).
 Off the fused step: ``tools/probe_torch_benes.py`` replays the world's
 work-order permutation with it beside the gather the step uses.
 """
@@ -94,15 +95,12 @@ def benes_permute(payload, ctrl, k, *, reverse=False, n_out=None):
         return benes_permute_plain(payload, ctrl, k, reverse=reverse,
                                    n_out=n_out)
     payload, n_out = _check(payload.contiguous(), ctrl, k, n_out)
-    ctrl = ctrl.contiguous()
-    n2 = 1 << k
-    whole = payload.shape[0] == n2 and payload.data_ptr() % 16 == 0
-    src = payload if whole else _padded(payload, n2)
-    out = torch.empty(n2, dtype=torch.int8, device=payload.device)
-    tmp = torch.empty_like(out)
+    out = torch.empty(1 << k, dtype=torch.int8, device=payload.device)
+    # the kernel reads the payload as 0 past its end: no padded copy
     err = runtime.library().es_benes_permute(
-        src.data_ptr(), out.data_ptr(), tmp.data_ptr(), ctrl.data_ptr(), k,
-        int(bool(reverse)), runtime.stream_handle())
+        payload.data_ptr(), payload.shape[0], out.data_ptr(),
+        ctrl.contiguous().data_ptr(), k, int(bool(reverse)),
+        runtime.stream_handle())
     runtime.check(err, "benes_permute")
     runtime.launches["benes_permute"] += 1
     return out[:n_out]

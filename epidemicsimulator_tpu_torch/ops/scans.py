@@ -25,6 +25,10 @@ def _scratch(n: int, n_sets: int, device) -> torch.Tensor:
     return torch.empty(nb * (2 + 4 * n_sets), dtype=torch.int32, device=device)
 
 
+#: B3's tile (``VEC * TILE`` in csrc/scans.cu); the kernel refuses scratch
+#: sized for a larger one
+LOOKBACK_TILE = 16_384
+
 #: B4's tiles hold a multiple of this many elements (the kernel's chunk,
 #: ``es_cumsum_apply_chunk`` in csrc/scans.cu)
 CUMSUM_CHUNK = 1024
@@ -49,16 +53,19 @@ def cumsum_i8(v):
         return cumsum_i8_plain(v)
     v = _i8_lane(v.contiguous(), "cumsum_i8")
     n = v.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=v.device)
     if n == 0:
-        return out
-    lib = runtime.library()
-    err = lib.es_cumsum_i8(v.data_ptr(), out.data_ptr(),
-                           _scratch(n, 0, v.device).data_ptr(), n,
-                           runtime.stream_handle())
+        return torch.empty(0, dtype=torch.int32, device=v.device)
+    # one allocation: the output, padded to 16 bytes, then the kernel's
+    # scratch of one 64-bit word per tile and one for its ticket
+    n16 = -(-n // 4) * 4
+    scratch_words = 2 * (-(-n // LOOKBACK_TILE) + 1)
+    buf = torch.empty(n16 + scratch_words, dtype=torch.int32, device=v.device)
+    err = runtime.library().es_cumsum_i8(
+        v.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * n16,
+        4 * scratch_words, n, runtime.stream_handle())
     runtime.check(err, "cumsum_i8")
     runtime.launches["cumsum_i8"] += 1
-    return out
+    return buf[:n]
 
 
 def _check_tile(tile_elems):

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -46,13 +47,14 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "es_scan_tile_elems": ([], ctypes.c_int),
     "es_error_string": ([ctypes.c_int], ctypes.c_char_p),
-    "es_cumsum_i8": ([_P, _P, _P, ctypes.c_longlong, _P], ctypes.c_int),
+    "es_cumsum_i8": (
+        [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P], ctypes.c_int),
     "es_cumsum_apply_chunk": ([], ctypes.c_int),
     "es_cumsum_apply_i8": (
         [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P], ctypes.c_int),
-    "es_benes_tile": ([], ctypes.c_int),
     "es_benes_permute": (
-        [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+        [_P, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+        ctypes.c_int),
     "es_run_totals_i8": (
         [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
         ctypes.c_int,
@@ -229,6 +231,42 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(fn, reps: int = 300) -> float:
+    """Host microseconds per call of ``fn()``, with no synchronize between
+    calls: the rate at which the host can issue the calls."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def device_ms(fn, reps: int = 20) -> dict:
+    """{CUDA kernel or memset: (device ms, launches) per call of
+    ``fn()``}, from torch.profiler over ``reps`` calls after one warm-up.
+    Unlike :func:`cuda_ms`, this leaves out the host's time between
+    launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if evt.device_type == DeviceType.CUDA and dev_us > 0:
+            rows[evt.key] = (dev_us / 1e3 / reps, evt.count / reps)
+    return rows
+
+
 def card() -> str:
     """The card's name and power limit, as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
@@ -239,7 +277,11 @@ def card() -> str:
 
 
 def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream of the current device, as an address.
+    ``torch.cuda.current_stream().cuda_stream`` gives the same number but
+    builds a Python Stream object first, which costs microseconds of host
+    time on every launch (``tools/probe_torch_cumsum.py`` times both)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def check_lanes(name: str, *tensors) -> None:

@@ -38,13 +38,41 @@ def _runs(rng, n, avg_run, within=None):
     return start, end
 
 
-@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 1_000_003])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 16_383, 16_384, 16_385,
+                               1_000_003, 16_777_217])
 def test_cumsum_kernel_matches_plain(cuda, n):
+    """B3 (a tile is 16,384 elements in four sub-tiles of 4,096): lanes of
+    0-3, of any int8 and of bools, and the same lane one byte off 16-byte
+    alignment."""
     rng = np.random.default_rng(n)
     v = torch.from_numpy(rng.integers(0, 4, n).astype(np.int8)).to(cuda)
     assert torch.equal(scans.cumsum_i8(v), scans.cumsum_i8_plain(v))
     b = v > 1
     assert torch.equal(scans.cumsum_i8(b), scans.cumsum_i8_plain(b))
+    w = torch.from_numpy(rng.integers(-128, 128, n + 1).astype(np.int8)).to(cuda)
+    for lane in (w[:n], w[1:]):
+        assert torch.equal(scans.cumsum_i8(lane), scans.cumsum_i8_plain(lane))
+
+
+def test_cumsum_kernel_back_to_back(cuda):
+    """50 calls of different lengths on one stream with no sync between
+    them: each call's look-back must read only its own descriptors, not
+    the flags an earlier call left in recycled scratch."""
+    rng = np.random.default_rng(50)
+    lanes = [torch.from_numpy(rng.integers(-128, 128, int(n)).astype(np.int8)).to(cuda)
+             for n in rng.integers(1, 300_000, 50)]
+    torch.cuda.synchronize()
+    got = [scans.cumsum_i8(v) for v in lanes]
+    for v, g in zip(lanes, got):
+        assert torch.equal(g, scans.cumsum_i8_plain(v))
+
+
+def test_cumsum_kernel_total_near_int32_max(cuda):
+    n = (2**31 - 1) // 127
+    v = torch.full((n,), 127, dtype=torch.int8, device=cuda)
+    got = scans.cumsum_i8(v)
+    assert int(got[-1]) == 127 * n > 2**31 - 128
+    assert torch.equal(got, scans.cumsum_i8_plain(v))
 
 
 @pytest.mark.parametrize("tile_elems", [1024, 4096, 131_072])
@@ -66,10 +94,11 @@ def _inverse(src):
     return inv
 
 
-@pytest.mark.parametrize("n", [2, 1000, 40_000, 100_003])
+@pytest.mark.parametrize("n", [2, 1000, 40_000, 100_003, 2_500_000])
 def test_benes_kernel_matches_plain_and_gather(cuda, n):
-    """Routed tables: k = 10 (middle run only), 16 and 17 (outer stages
-    too); forward and reverse against the plain replay and the gathers."""
+    """Routed tables: k = 10 (middle pass only), 16, 17 and 22 (an outer
+    pass on each side); forward and reverse against the plain replay and
+    the gathers."""
     rng = np.random.default_rng(n)
     src = rng.permutation(n).astype(np.int64)
     ctrl, k = benes.route_permutation(src)
@@ -82,9 +111,12 @@ def test_benes_kernel_matches_plain_and_gather(cuda, n):
         assert torch.equal(got, x[torch.from_numpy(idx).to(cuda)])
 
 
-@pytest.mark.parametrize("k", [10, 15, 16, 19])
+@pytest.mark.parametrize("k", [10, 12, 13, 14, 15, 16, 17, 19, 22, 23])
 def test_benes_kernel_matches_plain_on_random_ctrl(cuda, k):
-    """Control bytes that no router made: each element reads its own bit."""
+    """Control bytes that no router made: each element reads its own bit.
+    The kernel's tile is 2^13 bytes: k = 10 and 12 run on a smaller one,
+    13 on one tile with no outer pass, 14-22 with one outer pass of k - 13
+    stages on each side, 23 with two on each side."""
     rng = np.random.default_rng(k)
     n2 = 1 << k
     ctrl = torch.from_numpy(rng.integers(
@@ -96,6 +128,18 @@ def test_benes_kernel_matches_plain_on_random_ctrl(cuda, k):
                 benes.benes_permute(x, ctrl, k, reverse=reverse, n_out=n_out),
                 benes.benes_permute_plain(x, ctrl, k, reverse=reverse,
                                           n_out=n_out))
+
+
+def test_benes_kernel_reads_an_unaligned_payload(cuda):
+    k = 16
+    rng = np.random.default_rng(7)
+    ctrl = torch.from_numpy(rng.integers(
+        0, 256, ((2 * k - 1 + 7) // 8, 1 << k)).astype(np.uint8)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, 50_001).astype(np.int8)).to(cuda)
+    for reverse in (False, True):
+        assert torch.equal(benes.benes_permute(w[1:], ctrl, k, reverse=reverse),
+                           benes.benes_permute_plain(w[1:], ctrl, k,
+                                                     reverse=reverse))
 
 
 def test_benes_kernel_refuses_ctrl_on_another_device(cuda):

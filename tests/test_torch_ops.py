@@ -7,6 +7,7 @@ with different float32 approximations).
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -322,3 +323,33 @@ def test_entry_points_refuse_a_missing_card():
     tw = et.generate_synthetic_world(500, n_output_areas=2, seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         et.init_state(tw)
+
+
+@pytest.mark.parametrize("n", [15_999_999, 16_000_000, 63_000_000])
+def test_port_refuses_the_fixed_priority_formulation(n):
+    """From 16M citizens on, the JAX package's default step vaccinates from
+    the fixed-priority pool, which the port lacks: init_state and fast_step
+    raise there, on stand-in worlds (no 16M world is built), and only
+    there."""
+    from epidemicsimulator_tpu import SimConfig as JSimConfig
+    from epidemicsimulator_tpu.engine.fastpath import wants_fixed_priority_vax
+
+    from epidemicsimulator_tpu_torch.engine import fastpath as t_fastpath
+
+    world = types.SimpleNamespace(n_citizens=n, has_fast_tables=True)
+    jax_switches = wants_fixed_priority_vax(world, JSimConfig())
+    assert jax_switches == (n >= t_state.FIXED_PRIORITY_VAX_MIN_CITIZENS)
+    calls = (lambda: t_state.check_formulation(n),
+             lambda: et.init_state(world, device="cpu"),
+             lambda: t_fastpath.fast_step(world, et.Params.covid(),
+                                          et.SimConfig(), None))
+    for call in calls:
+        if jax_switches:
+            with pytest.raises(NotImplementedError,
+                               match="fixed-priority pool.*Queue 1 item 6"):
+                call()
+    if not jax_switches:
+        t_state.check_formulation(n)
+        # past the guard, the stand-in world has no lanes to read
+        with pytest.raises(AttributeError):
+            et.init_state(world, device="cpu")

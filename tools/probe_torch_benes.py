@@ -15,8 +15,10 @@ prints ms per pass (CUDA events, the mean of 20 after 3 warm-ups) of the
 kernel, the plain replay and the gather, the card's name and power
 limit and one JSON line.  ``--profile`` traces 20 forward replays of the
 world's table with torch.profiler and prints the device time of each
-CUDA kernel per replay (the outer stages and the shared-memory middle
-run are kernels of their own).  ``chip_smoke.py`` runs :func:`replay`
+CUDA kernel per replay and their sum by part: the middle pass
+(``benes_middle``), the outer passes (``benes_outer``) and anything
+else (the kernel reads the unpadded payload, so there is no padding
+copy).  ``chip_smoke.py`` runs :func:`replay`
 on ``work_perm`` as its Beneš path.
 """
 
@@ -87,28 +89,19 @@ def replay(name, src, inv, x):
 
 def profile_replay(x, ctrl, k):
     """Device ms per forward replay, by CUDA kernel, from torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    from epidemicsimulator_tpu_torch import runtime
     from epidemicsimulator_tpu_torch.ops import benes
 
-    benes.benes_permute(x, ctrl, k)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            benes.benes_permute(x, ctrl, k)
-        torch.cuda.synchronize()
-    rows = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-        if evt.device_type == DeviceType.CUDA and dev_us > 0:
-            rows[evt.key] = (dev_us / 1e3 / REPS, evt.count / REPS)
+    rows = runtime.device_ms(lambda: benes.benes_permute(x, ctrl, k), REPS)
     print("device time per forward replay (ms, launches, kernel):")
     for key, (ms, count) in sorted(rows.items(), key=lambda r: -r[1][0]):
         print(f"  {ms:8.4f} {count:6.2f}  {key[:80]}")
-    return {key: ms for key, (ms, _) in rows.items()}
+    split = {part: sum(ms for key, (ms, _) in rows.items() if part in key)
+             for part in ("benes_middle", "benes_outer")}
+    split["other"] = sum(ms for ms, _ in rows.values()) - sum(split.values())
+    print("per forward replay: " + ", ".join(
+        f"{part} {ms:.4f} ms" for part, ms in split.items()))
+    return {"kernels": {key: ms for key, (ms, _) in rows.items()}, **split}
 
 
 def main():

@@ -9,7 +9,8 @@ infected, Params.covid()) step by step on one CUDA card, timing each step
 on the host clock around a synchronize, and traces steps
 ``--profile-from``.. with torch.profiler.  Prints per-regime step times,
 the device's busy and idle share over the traced window and the device
-time by kernel; ``--table`` writes the profiler's full table to FILE.
+time by kernel: the top 20, then every kernel of ``csrc/`` and the
+memsets.  ``--table`` writes the profiler's full table to FILE.
 """
 
 import argparse
@@ -20,6 +21,10 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+#: the kernels of csrc/ on the step (B3 is cumsum_lookback after its
+#: descriptors' memset), listed after the top 20
+PORT_KERNELS = ("citizen_phase_kernel", "scan_summary", "scan_combine",
+                "scan_apply", "cumsum_lookback", "Memset")
 
 
 def main():
@@ -34,6 +39,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import epidemicsimulator_tpu_torch as et
+    from epidemicsimulator_tpu_torch import runtime
     from epidemicsimulator_tpu_torch.engine.fastpath import make_step_tables
 
     if not torch.cuda.is_available():
@@ -65,7 +71,7 @@ def main():
             times[regime].append(dt * 1e3)
     prof.stop()
 
-    card = torch.cuda.get_device_name(0)
+    card = runtime.card()
     print(f"card {card}; steps before the trace, host ms/step (median, count):")
     for k, v in times.items():
         if v:
@@ -86,6 +92,10 @@ def main():
     print("device time by kernel (ms/step, launches/step, name):")
     for us, count, key in rows[:20]:
         print(f"  {us / 1e3 / n_traced:8.4f} {count / n_traced:8.2f}  {key[:90]}")
+    print("the port's kernels and memsets (ms/step, launches/step, name):")
+    for us, count, key in rows:
+        if any(part in key for part in PORT_KERNELS):
+            print(f"  {us / 1e3 / n_traced:8.4f} {count / n_traced:8.2f}  {key[:90]}")
     if args.table:
         os.makedirs(os.path.dirname(os.path.abspath(args.table)), exist_ok=True)
         with open(args.table, "w") as f:
