@@ -10,7 +10,14 @@ Phases, each printing its elapsed seconds:
    host compiler's build of the Beneš router, ``csrc/*.cpp``);
 2. each kernel against its plain torch version on the card, at the main
    path's shapes (N = 3,457,142), on inputs made from a numpy seed, with
-   its time, the plain version's time and its memory bound;
+   its time, the plain version's time and its memory bound.  B1 runs
+   under all four combinations of its two reference flags, with a q of
+   NaN among them, with q and without; B2 on the world's masks, on random
+   nested runs, on one run over the whole lane, on every element its own
+   run, on runs of ~20,000 and on lanes one byte off 16-byte alignment.
+   B1's and B2's records also carry their device time and device
+   operations per call (torch.profiler) and their wrappers' host time per
+   call;
 3. the main path: the synthetic Yorkshire & Humber world (3,457,142
    citizens, 15,669 OAs, seed 0), ``init_state(seed=0,
    starting_infected=20_000)``, ``Params.covid()``, two chunks of 250
@@ -86,6 +93,18 @@ def random_runs(rng, n, avg_run, within=None):
     return start, end
 
 
+def device_record(fn):
+    """A kernel's device time and device operations (kernels and
+    memsets) per call, from torch.profiler, and its wrapper's host time
+    per call with no sync."""
+    from epidemicsimulator_tpu_torch import runtime
+
+    rows = runtime.device_ms(fn)
+    return dict(device_ms=sum(ms for ms, _ in rows.values()),
+                device_ops=sum(c for _, c in rows.values()),
+                host_us=runtime.host_us(fn))
+
+
 def check_kernels(world_dev, rng):
     """Phase 2: each kernel against its plain version at the main path's
     shapes.  Returns the per-kernel records (launches filled in later)."""
@@ -125,13 +144,27 @@ def check_kernels(world_dev, rng):
     ]
     coarse = random_runs(rng, n, 60)
     fine = random_runs(rng, n, 9, within=coarse[0])
-    sets_rand = [tuple(torch.from_numpy(m).to(dev) for m in coarse),
-                 tuple(torch.from_numpy(m).to(dev) for m in fine)]
-    for sets in (sets_world, sets_rand, sets_rand[1:]):
+    longer = random_runs(rng, n, 20_000)
+    whole = np.zeros(n, bool), np.zeros(n, bool)
+    whole[0][0] = whole[1][-1] = True
+    each = np.ones(n, bool), np.ones(n, bool)
+    to_dev = lambda pairs: [tuple(torch.from_numpy(m).to(dev) for m in pair)
+                            for pair in pairs]
+    sets_rand = to_dev([coarse, fine])
+    # the same lanes one byte off 16-byte alignment
+    shift = lambda x: torch.cat([x[:1], x])[1:]
+    cases = [sets_world, sets_rand, sets_rand[1:], to_dev([whole, each]),
+             to_dev([longer]), to_dev([longer, fine])]
+    for sets in cases:
         got = scans.run_totals_fused(v, sets)
         want = scans.run_totals_fused_plain(v, sets)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError("run_totals_fused disagrees with its plain version")
+    got = scans.run_totals_fused(
+        shift(v), [tuple(shift(m) for m in pair) for pair in sets_world])
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, scans.run_totals_fused_plain(v, sets_world))):
+        raise AssertionError("run_totals_fused disagrees on unaligned lanes")
     t_b, by = bound(n * (1 + 2 * 2 + 4 * 2), 2 * 10 * n)
     records.append(dict(
         name="run_totals_fused", route="cuda",
@@ -141,9 +174,13 @@ def check_kernels(world_dev, rng):
         ms=runtime.cuda_ms(lambda: scans.run_totals_fused(v, sets_world)),
         plain_ms=runtime.cuda_ms(lambda: scans.run_totals_fused_plain(v, sets_world)),
         bound_ms=t_b, bound_by=by, library_ms=None,
+        **device_record(lambda: scans.run_totals_fused(v, sets_world)),
     ))
-    say("B2 run_totals_fused: bitwise equal to its plain version "
-        "(world masks, random nested runs, one set)")
+    say("B2 run_totals_fused: bitwise equal to its plain version (world "
+        "masks, random nested runs, one set, one run over the lane, every "
+        "element its own run, runs of ~20,000, lanes one byte off "
+        f"alignment); {records[-1]['device_ms']:.4f} ms of device time in "
+        f"{records[-1]['device_ops']:g} device operations per call")
 
     # B1: the citizen phase on the world's statics and a random state
     statics = citizen.make_citizen_statics(world_dev)
@@ -153,15 +190,18 @@ def check_kernels(world_dev, rng):
     sched = torch.from_numpy(rng.integers(0, 32, n).astype(np.int8)).to(dev)
     f32 = np.float32
     worst_ulp, hit_flips, max_err = 0, 0, 0.0
-    for h24, move, mask_status, p0 in (
-        (8, True, 2, 0.00055), (12, True, 0, 0.05), (17, False, 1, 0.3),
+    # the four combinations of the two reference flags; p0 = 1 gives a q
+    # of NaN where no housemate is infected
+    for h24, move, mask_status, p0, ref_mask_sem, u8_trunc in (
+        (8, True, 2, 0.00055, True, True), (12, True, 0, 0.05, False, True),
+        (17, False, 1, 0.3, True, False), (9, True, 2, 1.0, False, False),
     ):
         kw = dict(h24=h24, move=move, mask_status=mask_status,
                   seed=int(rng.integers(0, 2**32)), exposed_time=96,
                   infected_time=336, exposure_chance=f32(p0),
                   mask_scale=f32(1.0) - f32(0.7),
-                  K=world_dev.max_household_size, ref_mask_sem=True,
-                  u8_trunc=True, want_q=True)
+                  K=world_dev.max_household_size, ref_mask_sem=ref_mask_sem,
+                  u8_trunc=u8_trunc, want_q=True)
         got = citizen.citizen_phase(statics, status, timer, sched, **kw)
         want = citizen.citizen_phase_plain(statics, status, timer, sched, **kw)
         q_got, q_want = got[5], want[5]
@@ -187,10 +227,20 @@ def check_kernels(world_dev, rng):
         if not torch.equal(got[4][:7], want[4][:7]) or (
                 int((got[4][7] - want[4][7]).abs()) > int(flip.sum())):
             raise AssertionError("citizen_phase: census disagrees")
-    say(f"B1 citizen_phase: lanes and census equal to its plain version; "
-        f"q differs by at most {worst_ulp} ulp (max abs {max_err:.3e}); "
-        f"home hits that differ by a 1-ulp q: {hit_flips}")
-    kw.update(want_q=False)
+        if p0 == 1.0 and not bool(torch.isnan(q_want).any()):
+            raise AssertionError("the p0 = 1 case has no NaN q to check")
+        kw.update(want_q=False)
+        without_q = citizen.citizen_phase(statics, status, timer, sched, **kw)
+        if len(without_q) != 5 or not all(
+                torch.equal(a, b) for a, b in zip(without_q, got[:5])):
+            raise AssertionError("citizen_phase differs without q")
+    say(f"B1 citizen_phase: lanes and census equal to its plain version "
+        f"under all four combinations of the reference flags, with and "
+        f"without q; q differs by at most {worst_ulp} ulp (max abs "
+        f"{max_err:.3e}; NaN where the plain q is NaN); home hits that "
+        f"differ by a 1-ulp q: {hit_flips}")
+    kw.update(h24=8, move=True, mask_status=2, exposure_chance=f32(0.00055),
+              ref_mask_sem=True, u8_trunc=True)
     t_b, by = bound(n * (1 + 4 + 1 + 5 + 1 + 4 + 1 + 1), 150 * n)
     records.append(dict(
         name="citizen_phase", route="cuda",
@@ -202,7 +252,11 @@ def check_kernels(world_dev, rng):
         plain_ms=runtime.cuda_ms(lambda: citizen.citizen_phase_plain(
             statics, status, timer, sched, **kw)),
         bound_ms=t_b, bound_by=by, library_ms=None,
+        **device_record(lambda: citizen.citizen_phase(statics, status, timer,
+                                                      sched, **kw)),
     ))
+    say(f"B1 citizen_phase: {records[-1]['device_ms']:.4f} ms of device time "
+        f"in {records[-1]['device_ops']:g} device operations per call")
     return records
 
 

@@ -7,21 +7,43 @@
 // On the TPU the grid runs in order and cumsum_pallas carries its running
 // total from block to block in SMEM.  Here blocks run in parallel.
 //
-// B2 is three passes over tiles of TILE elements:
+// B2 is two passes over units of TILE (4,096) elements, behind one
+// 16-byte memset (a ticket and a flag).  It is bound by memory: 1 +
+// 2 * n_sets bytes read and 4 * n_sets written per element, 0.0134 ms
+// for two sets at 3,457,142 on 3.35 TB/s.
 //
-//   summary  each block reduces its tile: the sum and, per boundary set,
-//            the largest exclusive prefix at a run start and the smallest
-//            inclusive prefix at a run end (tile-local values);
-//   combine  one block scans the (n / TILE) summaries: each tile's
-//            exclusive offset and, per set, the carries from the tiles
-//            before (max) and after (min) it;
-//   apply    each block rescans its tile and writes the totals.
+//   reduce  each block reads its unit once (16-byte loads) and writes the
+//           unit's aggregate: its sum and, per boundary set, the largest
+//           unit-local exclusive prefix at a run start and the smallest
+//           unit-local inclusive prefix at a run end; a unit with a
+//           negative value sets the flag.  The last block to finish (the
+//           ticket) joins the aggregates in order into each unit's
+//           inclusive prefix: the offset and, per set, the largest start
+//           prefix so far, 1,024 units per round.
+//   apply   each block reads its unit again (from L2, mostly: the inputs
+//           are 17 MB at 3,457,142) and writes the run totals through
+//           the shared staging tile as 16-byte stores.  Its carry in is
+//           the inclusive prefix of the unit before it; its carry from
+//           the units after it (the smallest end prefix) comes from their
+//           aggregates.  With no negative value in the lane the first
+//           unit after it that holds an end of every set ends that walk
+//           (prefixes only grow, so no later end is smaller): on the
+//           step's masks, always the next unit.  Otherwise the walk runs
+//           to the lane's end.  At most 64 registers, four blocks per SM.
 //
-// Bound: memory; B2 reads 1 + 2 * n_sets bytes and writes 4 * n_sets per
-// element.  The tile is read twice (summary and apply); the summaries are
-// a few KB.  Block-level scans are warp shuffles plus one shared-memory
-// step.
+// No block waits on another.  Measured on the H100 at 3,457,142, this
+// was faster than taking the carries by decoupled look-back, in the apply
+// pass or in the reduce pass (over units, or over groups of four units
+// as B3's tiles), and than each apply block joining the aggregates
+// before it: a look-back's rounds of L2 latency sat on every block's
+// path, while the last block's one round sits on one.
 //
+// Within a unit, one block scan runs over a struct carrying the sum and,
+// for both sets, the largest start prefix (forward) and the smallest end
+// prefix (backward).  All these are combined in order:
+// (s, mx, mn) then (s', mx', mn') is (s + s', max(mx, s + mx'),
+// min(mn, s + mn')), with INT_MIN and INT_MAX for "no start" and "no end".
+
 // B3 is one pass with decoupled look-back (Merrill and Garland, "Single-
 // pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016).  It
 // is bound by memory: 1 byte read and 4 written per element, 0.094 ms at
@@ -58,8 +80,12 @@
 // CHUNK elements with the running carry in a register; each thread
 // writes its four int32 results as one 16-byte store.  Bound: memory,
 // 1 byte read and 4 written per element, plus one read for the sums.
+#include <climits>
+
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile.cuh"
 
 namespace {
 
@@ -67,13 +93,9 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ITEMS = 16;
 constexpr int TILE = THREADS * ITEMS;
-constexpr int NEG = -(1 << 30);  // below any prefix, even plus an offset
-constexpr int POS = 1 << 30;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Add { __device__ int operator()(int a, int b) const { return a + b; } };
-struct Max { __device__ int operator()(int a, int b) const { return a > b ? a : b; } };
-struct Min { __device__ int operator()(int a, int b) const { return a < b ? a : b; } };
 
 // Exclusive scan of one value per thread in thread order (identity for
 // thread 0).  smem holds WARPS ints; every thread of the block must call.
@@ -101,199 +123,6 @@ __device__ int block_scan_excl(int x, int identity, Op op, int* smem) {
   int result = op(warp > 0 ? smem[warp - 1] : identity, before);
   __syncthreads();
   return result;
-}
-
-// Exclusive scan in reverse thread order: thread t gets op over t+1..end.
-template <class Op>
-__device__ int block_rscan_excl(int x, int identity, Op op, int* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = x;
-  for (int d = 1; d < 32; d <<= 1) {
-    int y = __shfl_down_sync(FULL, incl, d);
-    if (lane + d < 32) incl = op(incl, y);
-  }
-  if (lane == 0) smem[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < WARPS ? smem[lane] : identity;
-    for (int d = 1; d < 32; d <<= 1) {
-      int y = __shfl_down_sync(FULL, w, d);
-      if (lane + d < 32) w = op(w, y);
-    }
-    if (lane < WARPS) smem[lane] = w;
-  }
-  __syncthreads();
-  int after = __shfl_down_sync(FULL, incl, 1);
-  if (lane == 31) after = identity;
-  int result = op(after, warp < WARPS - 1 ? smem[warp + 1] : identity);
-  __syncthreads();
-  return result;
-}
-
-template <class Op>
-__device__ int block_reduce(int x, int identity, Op op, int* smem) {
-  int excl = block_scan_excl(x, identity, op, smem);
-  // the last thread holds the total after combining its own value
-  __shared__ int total;
-  if (threadIdx.x == THREADS - 1) total = op(excl, x);
-  __syncthreads();
-  int t = total;
-  __syncthreads();
-  return t;
-}
-
-struct Masks {
-  const uint8_t* start[2];
-  const uint8_t* end[2];
-};
-
-// Loads this thread's ITEMS values (0 past n) and returns the exclusive
-// prefix of the thread's first element within the tile.
-__device__ int load_tile(const int8_t* v, long long n, int* vals, int* smem) {
-  const long long base = (long long)blockIdx.x * TILE + threadIdx.x * ITEMS;
-  int tsum = 0;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    vals[i] = base + i < n ? (int)v[base + i] : 0;
-    tsum += vals[i];
-  }
-  return block_scan_excl(tsum, 0, Add(), smem);
-}
-
-template <int NSETS>
-__global__ void scan_summary(const int8_t* v, Masks m, long long n, int nb,
-                             int* sums, int* mstart, int* mend) {
-  __shared__ int smem[WARPS];
-  int vals[ITEMS];
-  const int excl = load_tile(v, n, vals, smem);
-  int tsum = 0;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) tsum += vals[i];
-  const int total = block_reduce(tsum, 0, Add(), smem);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-  const long long base = (long long)blockIdx.x * TILE + threadIdx.x * ITEMS;
-#pragma unroll
-  for (int k = 0; k < NSETS; ++k) {
-    int mx = NEG, mn = POS, run = excl;
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-      const int cse = run;
-      run += vals[i];
-      if (base + i < n) {
-        if (m.start[k][base + i]) mx = cse > mx ? cse : mx;
-        if (m.end[k][base + i]) mn = run < mn ? run : mn;
-      }
-    }
-    mx = block_reduce(mx, NEG, Max(), smem);
-    mn = block_reduce(mn, POS, Min(), smem);
-    if (threadIdx.x == 0) {
-      mstart[k * nb + blockIdx.x] = mx;
-      mend[k * nb + blockIdx.x] = mn;
-    }
-  }
-}
-
-// One block: tile offsets and, per set, the carries into each tile.
-template <int NSETS>
-__global__ void scan_combine(int nb, const int* sums, const int* mstart,
-                             const int* mend, int* offs, int* carry_c,
-                             int* carry_d) {
-  __shared__ int smem[WARPS];
-  const int per = (nb + THREADS - 1) / THREADS;
-  const int t0 = min(nb, (int)threadIdx.x * per), t1 = min(nb, t0 + per);
-  int local = 0;
-  for (int b = t0; b < t1; ++b) local += sums[b];
-  int run = block_scan_excl(local, 0, Add(), smem);
-  for (int b = t0; b < t1; ++b) {
-    offs[b] = run;
-    run += sums[b];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < NSETS; ++k) {
-    const int* ms = mstart + k * nb;
-    const int* me = mend + k * nb;
-    int mx = NEG, mn = POS;
-    for (int b = t0; b < t1; ++b) {
-      mx = max(mx, ms[b] + offs[b]);
-      mn = min(mn, me[b] + offs[b]);
-    }
-    int c = block_scan_excl(mx, NEG, Max(), smem);
-    for (int b = t0; b < t1; ++b) {
-      carry_c[k * nb + b] = c;
-      c = max(c, ms[b] + offs[b]);
-    }
-    int d = block_rscan_excl(mn, POS, Min(), smem);
-    for (int b = t1 - 1; b >= t0; --b) {
-      carry_d[k * nb + b] = d;
-      d = min(d, me[b] + offs[b]);
-    }
-  }
-}
-
-// out[k] receives set k's run totals.
-template <int NSETS>
-__global__ void scan_apply(const int8_t* v, Masks m, long long n, int nb,
-                           const int* offs, const int* carry_c,
-                           const int* carry_d, int* out0, int* out1) {
-  __shared__ int smem[WARPS];
-  int vals[ITEMS];
-  const int excl = load_tile(v, n, vals, smem);
-  const int s = offs[blockIdx.x];
-  const long long base = (long long)blockIdx.x * TILE + threadIdx.x * ITEMS;
-#pragma unroll
-  for (int k = 0; k < NSETS; ++k) {
-    int* out = k == 0 ? out0 : out1;
-    int sp[ITEMS], ep[ITEMS];
-    // forward: largest tile-local exclusive prefix at a start at or before i
-    int run = excl, mx = NEG;
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-      if (base + i < n && m.start[k][base + i]) mx = max(mx, run);
-      run += vals[i];
-      sp[i] = mx;
-    }
-    const int before = block_scan_excl(mx, NEG, Max(), smem);
-    // reverse: smallest tile-local inclusive prefix at an end at or after i
-    int mn = POS;
-    run = excl;
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i) run += vals[i];
-#pragma unroll
-    for (int i = ITEMS - 1; i >= 0; --i) {
-      if (base + i < n && m.end[k][base + i]) mn = min(mn, run);
-      run -= vals[i];
-      ep[i] = mn;
-    }
-    const int after = block_rscan_excl(mn, POS, Min(), smem);
-    const int c = carry_c[k * nb + blockIdx.x];
-    const int d = carry_d[k * nb + blockIdx.x];
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-      const int spi = max(max(before, sp[i]) + s, c);
-      const int epi = min(min(after, ep[i]) + s, d);
-      if (base + i < n) out[base + i] = epi - spi;
-    }
-  }
-}
-
-template <int NSETS>
-int run_scans(const int8_t* v, Masks m, long long n, int* scratch, int* out0,
-              int* out1, cudaStream_t stream) {
-  const int nb = (int)((n + TILE - 1) / TILE);
-  int* sums = scratch;
-  int* offs = sums + nb;
-  int* mstart = offs + nb;
-  int* mend = mstart + NSETS * nb;
-  int* carry_c = mend + NSETS * nb;
-  int* carry_d = carry_c + NSETS * nb;
-  scan_summary<NSETS><<<nb, THREADS, 0, stream>>>(v, m, n, nb, sums, mstart,
-                                                 mend);
-  scan_combine<NSETS><<<1, THREADS, 0, stream>>>(nb, sums, mstart, mend, offs,
-                                                carry_c, carry_d);
-  scan_apply<NSETS><<<nb, THREADS, 0, stream>>>(v, m, n, nb, offs, carry_c,
-                                               carry_d, out0, out1);
-  return (int)cudaGetLastError();
 }
 
 constexpr int APPLY_ITEMS = 4;
@@ -363,14 +192,6 @@ __device__ inline int warp_sum(int x) {
   return x;
 }
 
-// Where int4 q (0..3) of thread t's 16 results sits in the staging tile.
-// The XOR keeps both the writes (one int4 per thread) and the striped
-// reads (int4 o = s * THREADS + t) free of bank conflicts: each quarter-
-// warp phase of a 16-byte access touches 8 distinct 16-byte bank groups.
-__device__ inline int stage_slot(int t, int q) {
-  return t * 4 + (q ^ ((t >> 1) & 3));
-}
-
 // The exclusive prefix of tile `tile`, from the descriptors of the tiles
 // before it; called by warp 0.  Each round reads a window of 32 x LOOK
 // tiles, nearest first (lane l holds tiles end - LOOK*l - i), with LOOK
@@ -431,21 +252,10 @@ cumsum_lookback(const int8_t* v, long long n, int* out,
   const long long base = (long long)tile * VEC * TILE;
   uint32_t w[VEC][4];
   int excl[VEC];
+  const bool aligned = ((uintptr_t)v & 15) == 0;
 #pragma unroll
-  for (int u = 0; u < VEC; ++u) {
-    const long long i0 = base + u * TILE + t * ITEMS;
-    if (i0 + ITEMS <= n && ((uintptr_t)v & 15) == 0) {
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(v + i0));
-      w[u][0] = q.x; w[u][1] = q.y; w[u][2] = q.z; w[u][3] = q.w;
-    } else {  // the lane's ragged end, or a lane not 16-byte aligned
-#pragma unroll
-      for (int e = 0; e < ITEMS; ++e) {
-        if (e % 4 == 0) w[u][e / 4] = 0;
-        if (i0 + e < n)
-          w[u][e / 4] |= (uint32_t)(uint8_t)v[i0 + e] << (8 * (e % 4));
-      }
-    }
-  }
+  for (int u = 0; u < VEC; ++u)
+    tileio::load_bytes<ITEMS>(v, base + u * TILE + t * ITEMS, n, aligned, w[u]);
   int total = 0;
 #pragma unroll
   for (int u = 0; u < VEC; ++u) {
@@ -475,38 +285,398 @@ cumsum_lookback(const int8_t* v, long long n, int* out,
   for (int u = 0; u < VEC; ++u) {
     if (u > 0) __syncthreads();  // the previous sub-tile's reads are done
     int run = prefix + excl[u];
+    int r[ITEMS];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int r[4];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        run += (int)(int8_t)(w[u][q] >> (8 * b));
-        r[b] = run;
-      }
-      stage[stage_slot(t, q)] = make_int4(r[0], r[1], r[2], r[3]);
+    for (int e = 0; e < ITEMS; ++e) {
+      run += (int)(int8_t)tileio::byte_at(w[u], e);
+      r[e] = run;
     }
-    __syncthreads();
-    const long long sub = base + u * TILE;
-#pragma unroll
-    for (int s = 0; s < ITEMS / 4; ++s) {
-      const int o = s * THREADS + t;
-      const int4 x = stage[stage_slot(o >> 2, o & 3)];
-      const long long e = sub + 4LL * o;
-      if (e + 4 <= n) {
-        *reinterpret_cast<int4*>(out + e) = x;
-      } else {
-        if (e < n) out[e] = x.x;
-        if (e + 1 < n) out[e + 1] = x.y;
-        if (e + 2 < n) out[e + 2] = x.z;
-      }
-    }
+    tileio::store_words<THREADS>(out, base + u * TILE, n, stage, r);
   }
 }
 
-}  // namespace
+// B2.  A unit of TILE elements; thread t holds elements 16t .. 16t + 15.
+// Agg is a stretch of elements in order: its sum and, per set, the
+// largest exclusive prefix at a start and the smallest inclusive prefix
+// at an end, both relative to the stretch's first element (INT_MIN: no
+// start, INT_MAX: no end).
+template <int NSETS>
+struct Agg {
+  int s, mx[NSETS], mn[NSETS];
+};
 
-// Elements per tile: scratch holds (2 + 4 * n_sets) ints per tile.
-extern "C" int es_scan_tile_elems() { return TILE; }
+template <int NSETS>
+__device__ inline Agg<NSETS> agg_identity() {
+  Agg<NSETS> a;
+  a.s = 0;
+#pragma unroll
+  for (int k = 0; k < NSETS; ++k) {
+    a.mx[k] = INT_MIN;
+    a.mn[k] = INT_MAX;
+  }
+  return a;
+}
+
+// a, then b.
+template <int NSETS>
+__device__ inline Agg<NSETS> join(const Agg<NSETS>& a, const Agg<NSETS>& b) {
+  Agg<NSETS> r;
+  r.s = a.s + b.s;
+#pragma unroll
+  for (int k = 0; k < NSETS; ++k) {
+    r.mx[k] = b.mx[k] == INT_MIN ? a.mx[k] : max(a.mx[k], a.s + b.mx[k]);
+    r.mn[k] = b.mn[k] == INT_MAX ? a.mn[k] : min(a.mn[k], a.s + b.mn[k]);
+  }
+  return r;
+}
+
+template <int NSETS>
+__device__ inline Agg<NSETS> shfl_up(const Agg<NSETS>& a, int d) {
+  Agg<NSETS> r;
+  r.s = __shfl_up_sync(FULL, a.s, d);
+#pragma unroll
+  for (int k = 0; k < NSETS; ++k) {
+    r.mx[k] = __shfl_up_sync(FULL, a.mx[k], d);
+    r.mn[k] = __shfl_up_sync(FULL, a.mn[k], d);
+  }
+  return r;
+}
+
+template <int NSETS>
+__device__ inline Agg<NSETS> shfl_idx(const Agg<NSETS>& a, int src) {
+  Agg<NSETS> r;
+  r.s = __shfl_sync(FULL, a.s, src);
+#pragma unroll
+  for (int k = 0; k < NSETS; ++k) {
+    r.mx[k] = __shfl_sync(FULL, a.mx[k], src);
+    r.mn[k] = __shfl_sync(FULL, a.mn[k], src);
+  }
+  return r;
+}
+
+template <int NSETS>
+__device__ inline Agg<NSETS> shfl_down(const Agg<NSETS>& a, int d) {
+  Agg<NSETS> r;
+  r.s = __shfl_down_sync(FULL, a.s, d);
+#pragma unroll
+  for (int k = 0; k < NSETS; ++k) {
+    r.mx[k] = __shfl_down_sync(FULL, a.mx[k], d);
+    r.mn[k] = __shfl_down_sync(FULL, a.mn[k], d);
+  }
+  return r;
+}
+
+// The whole warp's stretches in lane order, in lane 0; every lane must
+// call.
+template <int NSETS>
+__device__ inline Agg<NSETS> warp_join(Agg<NSETS> a) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Agg<NSETS> b = shfl_down(a, d);
+    if (lane + d < 32) a = join(a, b);
+  }
+  return a;
+}
+
+struct RunMasks {
+  const uint8_t* start[2];
+  const uint8_t* end[2];
+};
+
+// The device memory of one call, in ints: the ticket and the negative
+// flag (zeroed by the memset) and two pads, then per unit its aggregate
+// (sum, largest start prefix and smallest end prefix per set) and its
+// inclusive prefix (sum, largest start prefix per set).  Per-set arrays
+// hold set k of unit u at k * nb + u.
+struct RunMem {
+  unsigned* ticket;
+  int* negative;
+  int *agg_s, *agg_mx, *agg_mn, *incl_s, *incl_mx;
+  int nb;
+};
+
+// The scratch ints of a call with nb units.
+__host__ __device__ inline long long run_scratch_ints(long long nb,
+                                                      int nsets) {
+  return 4 + nb * (2 + 3 * nsets);
+}
+
+template <int NSETS>
+__device__ inline RunMem run_mem(int* scratch, int nb) {
+  RunMem m;
+  m.nb = nb;
+  m.ticket = reinterpret_cast<unsigned*>(scratch);
+  m.negative = scratch + 1;
+  m.agg_s = scratch + 4;
+  m.agg_mx = m.agg_s + nb;
+  m.agg_mn = m.agg_mx + NSETS * nb;
+  m.incl_s = m.agg_mn + NSETS * nb;
+  m.incl_mx = m.incl_s + nb;
+  return m;
+}
+
+// Loads thread t's 16 values and mask bytes of the unit at element i0.
+template <int NSETS>
+__device__ inline void load_unit(const int8_t* v, const RunMasks& m,
+                                 long long i0, long long n, bool aligned,
+                                 uint32_t (&V)[4], uint32_t (&S)[NSETS][4],
+                                 uint32_t (&E)[NSETS][4]) {
+  tileio::load_bytes<ITEMS>(v, i0, n, aligned, V);
+#pragma unroll
+  for (int k = 0; k < NSETS; ++k) {
+    tileio::load_bytes<ITEMS>(m.start[k], i0, n, aligned, S[k]);
+    tileio::load_bytes<ITEMS>(m.end[k], i0, n, aligned, E[k]);
+  }
+}
+
+// The Agg of thread t's 16 elements; `neg` is set if a value is negative.
+template <int NSETS>
+__device__ inline Agg<NSETS> thread_agg(const uint32_t (&V)[4],
+                                        const uint32_t (&S)[NSETS][4],
+                                        const uint32_t (&E)[NSETS][4],
+                                        bool& neg) {
+  Agg<NSETS> a = agg_identity<NSETS>();
+#pragma unroll
+  for (int e = 0; e < ITEMS; ++e) {
+    const int x = (int)(int8_t)tileio::byte_at(V, e);
+    neg |= x < 0;
+#pragma unroll
+    for (int k = 0; k < NSETS; ++k)
+      if (tileio::byte_at(S[k], e)) a.mx[k] = max(a.mx[k], a.s);
+    a.s += x;
+#pragma unroll
+    for (int k = 0; k < NSETS; ++k)
+      if (tileio::byte_at(E[k], e)) a.mn[k] = min(a.mn[k], a.s);
+  }
+  return a;
+}
+
+// The last reduce block and the look-forward's fallback walk take WINDOW
+// units per round, LOOK per thread.
+constexpr int WINDOW = THREADS * LOOK;
+
+// The exclusive join of the threads before this one, in thread order, and
+// (in `total`) the whole block's; every thread must call.  smem holds
+// WARPS Aggs.
+template <int NSETS>
+__device__ inline Agg<NSETS> block_scan(Agg<NSETS> x, Agg<NSETS>* smem,
+                                        Agg<NSETS>& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Agg<NSETS> o = shfl_up(x, d);
+    if (lane >= d) x = join(o, x);
+  }
+  if (lane == 31) smem[warp] = x;
+  Agg<NSETS> pre = shfl_up(x, 1);
+  if (lane == 0) pre = agg_identity<NSETS>();
+  __syncthreads();
+  for (int w = warp - 1; w >= 0; --w) pre = join(smem[w], pre);
+  total = smem[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) total = join(total, smem[w]);
+  __syncthreads();
+  return pre;
+}
+
+// Pass 1: each unit's aggregate; then the last block to finish (an
+// atomic ticket) turns the aggregates into each unit's inclusive prefix
+// (sum and largest start prefix per set), 4 units per thread per round
+// of 1,024 units.  No block waits on another.
+template <int NSETS>
+__global__ void __launch_bounds__(THREADS)
+runs_reduce(const int8_t* v, RunMasks m, long long n, bool aligned,
+            int* scratch, int nb) {
+  __shared__ Agg<NSETS> wagg[WARPS];
+  __shared__ bool last;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const RunMem mem = run_mem<NSETS>(scratch, nb);
+  uint32_t V[4], S[NSETS][4], E[NSETS][4];
+  load_unit<NSETS>(v, m, (long long)blockIdx.x * TILE + t * ITEMS, n,
+                   aligned, V, S, E);
+  bool neg = false;
+  const Agg<NSETS> a = warp_join(thread_agg<NSETS>(V, S, E, neg));
+  if (lane == 0) wagg[warp] = a;
+  neg = __syncthreads_or(neg);
+  if (t == 0) {
+    Agg<NSETS> u = wagg[0];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) u = join(u, wagg[w]);
+    const int b = blockIdx.x;
+    mem.agg_s[b] = u.s;
+#pragma unroll
+    for (int k = 0; k < NSETS; ++k) {
+      mem.agg_mx[k * nb + b] = u.mx[k];
+      mem.agg_mn[k * nb + b] = u.mn[k];
+    }
+    if (neg) atomicOr(mem.negative, 1);
+    __threadfence();
+    last = atomicAdd(mem.ticket, 1u) == (unsigned)nb - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  Agg<NSETS> carry = agg_identity<NSETS>();
+  for (int lo = 0; lo < nb; lo += WINDOW) {
+    Agg<NSETS> y[LOOK], x = agg_identity<NSETS>();
+#pragma unroll
+    for (int i = 0; i < LOOK; ++i) {
+      const int p = lo + LOOK * t + i;
+      y[i] = agg_identity<NSETS>();
+      if (p < nb) {
+        y[i].s = __ldcg(mem.agg_s + p);
+#pragma unroll
+        for (int k = 0; k < NSETS; ++k) y[i].mx[k] = __ldcg(mem.agg_mx + k * nb + p);
+      }
+      x = join(x, y[i]);
+    }
+    Agg<NSETS> total;
+    Agg<NSETS> pre = join(carry, block_scan(x, wagg, total));
+#pragma unroll
+    for (int i = 0; i < LOOK; ++i) {
+      const int p = lo + LOOK * t + i;
+      pre = join(pre, y[i]);
+      if (p < nb) {
+        mem.incl_s[p] = pre.s;
+#pragma unroll
+        for (int k = 0; k < NSETS; ++k) mem.incl_mx[k * nb + p] = pre.mx[k];
+      }
+    }
+    carry = join(carry, total);
+  }
+}
+
+// The units after `unit` joined in order, relative to the first element
+// of unit + 1 (only the sum and mn matter), from the reduce pass's
+// aggregates; every thread calls and gets it.  With no negative value in
+// the lane, the first unit after `unit` that holds an end of every set
+// ends the walk, since no later end can have a smaller prefix: that is
+// almost always unit + 1, which every thread reads at once.  Otherwise
+// the block joins the aggregates of WINDOW units per round.
+template <int NSETS>
+__device__ Agg<NSETS> runs_look_forward(const RunMem& mem, int unit,
+                                        bool negative, Agg<NSETS>* smem) {
+  const int t = threadIdx.x;
+  Agg<NSETS> acc = agg_identity<NSETS>();
+  if (unit + 1 >= mem.nb) return acc;
+  acc.s = mem.agg_s[unit + 1];
+  bool ends = true;
+#pragma unroll
+  for (int k = 0; k < NSETS; ++k) {
+    acc.mn[k] = mem.agg_mn[k * mem.nb + unit + 1];
+    ends &= acc.mn[k] != INT_MAX;
+  }
+  for (int start = unit + 2; start < mem.nb && !(ends && !negative);
+       start += WINDOW) {
+    Agg<NSETS> x = agg_identity<NSETS>();
+#pragma unroll
+    for (int i = 0; i < LOOK; ++i) {
+      const int p = start + LOOK * t + i;
+      if (p >= mem.nb) break;
+      Agg<NSETS> y = agg_identity<NSETS>();
+      y.s = mem.agg_s[p];
+#pragma unroll
+      for (int k = 0; k < NSETS; ++k) y.mn[k] = mem.agg_mn[k * mem.nb + p];
+      x = join(x, y);
+    }
+    Agg<NSETS> total;
+    block_scan(x, smem, total);
+    acc = join(acc, total);
+    ends = true;
+#pragma unroll
+    for (int k = 0; k < NSETS; ++k) ends &= acc.mn[k] != INT_MAX;
+  }
+  return acc;
+}
+
+// Pass 2: the run totals of unit blockIdx.x, from the reduce pass's
+// inclusive prefix of the unit before it and the aggregates of the units
+// after.  At most 64 registers, so that four blocks share an SM.
+template <int NSETS>
+__global__ void __launch_bounds__(THREADS, 4)
+runs_apply(const int8_t* v, RunMasks m, long long n, bool aligned,
+           int* scratch, int nb, int* out0, int* out1) {
+  __shared__ int4 stage[NSETS][TILE / 4];
+  __shared__ Agg<NSETS> wagg[WARPS];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const RunMem mem = run_mem<NSETS>(scratch, nb);
+  const int unit = blockIdx.x;
+  const long long base = (long long)unit * TILE;
+  uint32_t V[4], S[NSETS][4], E[NSETS][4];
+  load_unit<NSETS>(v, m, base + t * ITEMS, n, aligned, V, S, E);
+  bool neg = false;
+  const Agg<NSETS> a = thread_agg<NSETS>(V, S, E, neg);
+  // the units before, as an absolute prefix, and the units after
+  Agg<NSETS> before = agg_identity<NSETS>();
+  if (unit > 0) {
+    before.s = mem.incl_s[unit - 1];
+#pragma unroll
+    for (int k = 0; k < NSETS; ++k)
+      before.mx[k] = mem.incl_mx[k * nb + unit - 1];
+  }
+  const Agg<NSETS> after =
+      runs_look_forward<NSETS>(mem, unit, *mem.negative != 0, wagg);
+
+  // one block scan, forward and backward at once
+  Agg<NSETS> f = a, b = a;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Agg<NSETS> fu = shfl_up(f, d), bd = shfl_down(b, d);
+    if (lane >= d) f = join(fu, f);
+    if (lane + d < 32) b = join(b, bd);
+  }
+  if (lane == 31) wagg[warp] = f;
+  Agg<NSETS> pre = shfl_up(f, 1), post = shfl_down(b, 1);
+  if (lane == 0) pre = agg_identity<NSETS>();
+  if (lane == 31) post = agg_identity<NSETS>();
+  __syncthreads();
+  for (int w = warp - 1; w >= 0; --w) pre = join(wagg[w], pre);
+  for (int w = warp + 1; w < WARPS; ++w) post = join(post, wagg[w]);
+  // pre: the unit's elements before this thread's, from the unit's first;
+  // post: those after, from the next thread's first
+  const int thread_end = pre.s + a.s;  // unit-local prefix after the thread
+#pragma unroll
+  for (int k = 0; k < NSETS; ++k) {
+    int r[ITEMS];
+    // forward: the largest exclusive prefix at a start at or before i
+    int p = pre.s, mx = pre.mx[k];
+#pragma unroll
+    for (int e = 0; e < ITEMS; ++e) {
+      if (tileio::byte_at(S[k], e)) mx = max(mx, p);
+      p += (int)(int8_t)tileio::byte_at(V, e);
+      r[e] = mx == INT_MIN ? before.mx[k] : max(before.mx[k], before.s + mx);
+    }
+    // backward: the smallest inclusive prefix at an end at or after i
+    int mn = post.mn[k] == INT_MAX ? INT_MAX : thread_end + post.mn[k];
+    if (after.mn[k] != INT_MAX)
+      mn = min(mn, thread_end + post.s + after.mn[k]);
+    p = thread_end;
+#pragma unroll
+    for (int e = ITEMS - 1; e >= 0; --e) {
+      if (tileio::byte_at(E[k], e)) mn = min(mn, p);
+      p -= (int)(int8_t)tileio::byte_at(V, e);
+      r[e] = (mn == INT_MAX ? INT_MAX : before.s + mn) - r[e];
+    }
+    tileio::store_words<THREADS>(k == 0 ? out0 : out1, base, n,
+                                        stage[k], r);
+  }
+}
+
+template <int NSETS>
+int run_totals(const int8_t* v, RunMasks m, long long n, bool aligned,
+               int* scratch, int nb, int* out0, int* out1,
+               cudaStream_t stream) {
+  const cudaError_t err =
+      cudaMemsetAsync(scratch, 0, 4 * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  runs_reduce<NSETS><<<nb, THREADS, 0, stream>>>(v, m, n, aligned, scratch,
+                                                nb);
+  runs_apply<NSETS><<<nb, THREADS, 0, stream>>>(v, m, n, aligned, scratch, nb,
+                                               out0, out1);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" const char* es_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -532,22 +702,32 @@ extern "C" int es_cumsum_i8(const void* v, void* out, void* scratch,
   return (int)cudaGetLastError();
 }
 
-// B2: for each of n_sets (1 or 2) boundary sets, the total of v over the
-// run that holds each element.
+// B2: for each of n_sets (1 or 2) boundary sets, the total of v (values
+// >= 0) over the run that holds each element; the masks must describe
+// whole runs (element 0 starts one, element n - 1 ends one).  With
+// nb = ceil(n / 4096) units, scratch holds 4 + nb * (2 + 3 * n_sets)
+// ints; its first 4 are zeroed here in stream order before the launches.
+// out0, out1 and scratch must be 16-byte aligned; v and the masks may
+// have any alignment.
 extern "C" int es_run_totals_i8(const void* v, const void* start0,
                                 const void* end0, const void* start1,
                                 const void* end1, void* out0, void* out1,
-                                void* scratch, long long n, int n_sets,
-                                void* stream) {
-  Masks m = {{(const uint8_t*)start0, (const uint8_t*)start1},
-             {(const uint8_t*)end0, (const uint8_t*)end1}};
+                                void* scratch, long long scratch_bytes,
+                                long long n, int n_sets, void* stream) {
+  const long long nb = (n + TILE - 1) / TILE;
+  if (n <= 0 || (n_sets != 1 && n_sets != 2) || nb > 0x0fffffffLL ||
+      scratch_bytes < run_scratch_ints(nb, n_sets) * 4 ||
+      (((uintptr_t)out0 | (uintptr_t)out1 | (uintptr_t)scratch) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = (((uintptr_t)v | (uintptr_t)start0 | (uintptr_t)end0 |
+                         (uintptr_t)start1 | (uintptr_t)end1) & 15) == 0;
+  RunMasks m = {{(const uint8_t*)start0, (const uint8_t*)start1},
+                {(const uint8_t*)end0, (const uint8_t*)end1}};
   if (n_sets == 1)
-    return run_scans<1>((const int8_t*)v, m, n, (int*)scratch, (int*)out0,
-                        nullptr, (cudaStream_t)stream);
-  if (n_sets == 2)
-    return run_scans<2>((const int8_t*)v, m, n, (int*)scratch, (int*)out0,
-                        (int*)out1, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+    return run_totals<1>((const int8_t*)v, m, n, aligned, (int*)scratch,
+                         (int)nb, (int*)out0, nullptr, (cudaStream_t)stream);
+  return run_totals<2>((const int8_t*)v, m, n, aligned, (int*)scratch,
+                       (int)nb, (int*)out0, (int*)out1, (cudaStream_t)stream);
 }
 
 // B4's apply: the tiles' elements are a multiple of this.

@@ -29,6 +29,14 @@ from .. import runtime
 from . import maths
 from .hashrng import hash_uniform
 
+#: citizens per block of the kernel (``TILE_ELEMS`` in csrc/citizen.cu);
+#: the census holds 8 partial counts per block
+CITIZEN_TILE = 2048
+
+#: the kernel's ticket per (device, stream): one int that each call leaves
+#: at 0, so the calls that share it run in stream order
+_tickets: dict = {}
+
 
 class CitizenStatics(NamedTuple):
     """The kernel's static lanes, bit-packed into five int8 lanes:
@@ -172,24 +180,42 @@ def citizen_phase(statics, status, timer, sched, *, h24, move, mask_status,
     if any(x.dtype != dt or x.shape != (n,) for x, dt in zip(lanes, dtypes)):
         raise ValueError("citizen_phase: lanes must be (N,) with the kernel's dtypes")
     dev = status.device
-    status1 = torch.empty(n, dtype=torch.int8, device=dev)
-    timer1 = torch.empty(n, dtype=torch.int32, device=dev)
-    sched1 = torch.empty(n, dtype=torch.int8, device=dev)
-    gates = torch.empty(n, dtype=torch.int8, device=dev)
-    totals = torch.zeros(8, dtype=torch.int32, device=dev)
-    q = torch.empty(n, dtype=torch.float32, device=dev) if want_q else None
-    if n:
-        err = runtime.library().es_citizen_phase(
-            *(x.data_ptr() for x in lanes),
-            status1.data_ptr(), timer1.data_ptr(), sched1.data_ptr(),
-            gates.data_ptr(), totals.data_ptr(),
-            q.data_ptr() if want_q else None,
-            n, int(h24), int(bool(move)), int(mask_status), int(seed),
-            int(exposed_time), int(infected_time), float(exposure_chance),
-            float(mask_scale), int(bool(ref_mask_sem)), int(bool(u8_trunc)),
-            runtime.stream_handle(),
-        )
-        runtime.check(err, "citizen_phase")
-        runtime.launches["citizen_phase"] += 1
+    if n == 0:
+        e8 = torch.empty(0, dtype=torch.int8, device=dev)
+        out = (e8, torch.empty(0, dtype=torch.int32, device=dev), e8, e8,
+               torch.zeros(8, dtype=torch.int32, device=dev))
+        return out + (torch.empty(0, device=dev),) if want_q else out
+    # one allocation: timer (and q), status, sched, gates, each from a
+    # 16-byte boundary, then the totals and the per-tile census partials
+    n16 = -(-n // 16) * 16
+    lane4 = 4 * n16
+    off = 2 * lane4 if want_q else lane4
+    n_partials = 8 * -(-n // CITIZEN_TILE)
+    buf = torch.empty(off + 3 * n16 + 4 * (8 + n_partials), dtype=torch.int8,
+                      device=dev)
+    timer1 = buf[:4 * n].view(torch.int32)
+    q = buf[lane4:lane4 + 4 * n].view(torch.float32) if want_q else None
+    status1 = buf[off:off + n]
+    sched1 = buf[off + n16:off + n16 + n]
+    gates = buf[off + 2 * n16:off + 2 * n16 + n]
+    totals = buf[off + 3 * n16:off + 3 * n16 + 32].view(torch.int32)
+    stream = runtime.stream_handle()
+    ticket = _tickets.get((dev.index, stream))
+    if ticket is None:
+        ticket = _tickets[(dev.index, stream)] = torch.zeros(
+            1, dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    err = runtime.library().es_citizen_phase(
+        *(x.data_ptr() for x in lanes),
+        base + off, base, base + off + n16, base + off + 2 * n16,
+        base + off + 3 * n16, base + off + 3 * n16 + 32, 4 * n_partials,
+        ticket.data_ptr(), base + lane4 if want_q else None,
+        n, int(h24), int(bool(move)), int(mask_status), int(seed),
+        int(exposed_time), int(infected_time), float(exposure_chance),
+        float(mask_scale), int(bool(ref_mask_sem)), int(bool(u8_trunc)),
+        stream,
+    )
+    runtime.check(err, "citizen_phase")
+    runtime.launches["citizen_phase"] += 1
     out = (status1, timer1, sched1, gates, totals)
     return out + (q,) if want_q else out

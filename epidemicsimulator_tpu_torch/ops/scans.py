@@ -19,15 +19,13 @@ from .. import runtime
 from .runsums import run_totals_from_cumsum
 
 
-def _scratch(n: int, n_sets: int, device) -> torch.Tensor:
-    tile = runtime.library().es_scan_tile_elems()
-    nb = -(-n // tile)
-    return torch.empty(nb * (2 + 4 * n_sets), dtype=torch.int32, device=device)
-
-
 #: B3's tile (``VEC * TILE`` in csrc/scans.cu); the kernel refuses scratch
 #: sized for a larger one
 LOOKBACK_TILE = 16_384
+
+#: B2's unit (``TILE`` in csrc/scans.cu); its scratch holds 4 ints and
+#: 2 + 3 * n_sets ints per unit
+RUN_TOTALS_UNIT = 4096
 
 #: B4's tiles hold a multiple of this many elements (the kernel's chunk,
 #: ``es_cumsum_apply_chunk`` in csrc/scans.cu)
@@ -159,17 +157,22 @@ def run_totals_fused(v, sets):
     n = v.shape[0]
     if any(m.shape != (n,) for m in masks):
         raise ValueError("run_totals_fused: masks must match the lane")
-    outs = [torch.empty(n, dtype=torch.int32, device=v.device) for _ in sets]
+    k = len(sets)
     if n == 0:
-        return tuple(outs)
+        return tuple(torch.empty(0, dtype=torch.int32, device=v.device)
+                     for _ in sets)
+    # one allocation: each output from a 16-byte boundary, then the
+    # kernels' scratch
+    n4 = -(-n // 4) * 4
+    scratch = 4 + -(-n // RUN_TOTALS_UNIT) * (2 + 3 * k)
+    buf = torch.empty(k * n4 + scratch, dtype=torch.int32, device=v.device)
     ptr = [m.data_ptr() for m in masks] + [None, None]
-    out_ptr = [o.data_ptr() for o in outs] + [None]
-    lib = runtime.library()
-    err = lib.es_run_totals_i8(
-        v.data_ptr(), ptr[0], ptr[1], ptr[2], ptr[3], out_ptr[0], out_ptr[1],
-        _scratch(n, len(sets), v.device).data_ptr(), n, len(sets),
-        runtime.stream_handle(),
+    base = buf.data_ptr()
+    err = runtime.library().es_run_totals_i8(
+        v.data_ptr(), ptr[0], ptr[1], ptr[2], ptr[3], base,
+        base + 4 * n4 if k == 2 else None, base + 4 * k * n4, 4 * scratch, n,
+        k, runtime.stream_handle(),
     )
     runtime.check(err, "run_totals_fused")
     runtime.launches["run_totals_fused"] += 1
-    return tuple(outs)
+    return tuple(buf[i * n4:i * n4 + n] for i in range(k))

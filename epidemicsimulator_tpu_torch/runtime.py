@@ -45,7 +45,6 @@ MAIN_PATH_KERNELS = ("citizen_phase", "run_totals_fused", "cumsum_i8")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "es_scan_tile_elems": ([], ctypes.c_int),
     "es_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "es_cumsum_i8": (
         [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P], ctypes.c_int),
@@ -56,11 +55,12 @@ _SIGNATURES = {
         [_P, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int, _P],
         ctypes.c_int),
     "es_run_totals_i8": (
-        [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+        [_P] * 8 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P],
         ctypes.c_int,
     ),
     "es_citizen_phase": (
-        [_P] * 14 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        [_P] * 14 + [ctypes.c_longlong, _P, _P, ctypes.c_longlong,
+                     ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                      ctypes.c_float, ctypes.c_float, ctypes.c_int,
                      ctypes.c_int, _P],
@@ -248,7 +248,9 @@ def device_ms(fn, reps: int = 20) -> dict:
     """{CUDA kernel or memset: (device ms, launches) per call of
     ``fn()``}, from torch.profiler over ``reps`` calls after one warm-up.
     Unlike :func:`cuda_ms`, this leaves out the host's time between
-    launches."""
+    launches.  The launches per call are rounded to a whole number and
+    the device ms is the mean per launch times that, so a launch whose
+    record the tracer drops does not lower it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -263,7 +265,8 @@ def device_ms(fn, reps: int = 20) -> dict:
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0))
         if evt.device_type == DeviceType.CUDA and dev_us > 0:
-            rows[evt.key] = (dev_us / 1e3 / reps, evt.count / reps)
+            per_call = max(1, round(evt.count / reps))
+            rows[evt.key] = (dev_us / 1e3 / evt.count * per_call, per_call)
     return rows
 
 

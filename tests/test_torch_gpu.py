@@ -8,6 +8,7 @@ This file imports nothing of JAX; run it on a machine with a card as
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -162,6 +163,73 @@ def test_run_totals_kernel_matches_plain(cuda, n):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("n", [4096 * 7 + 3, 1_000_003])
+def test_run_totals_kernel_edge_runs(cuda, n):
+    """B2 (units of 4,096): one run over the whole lane, every element its
+    own run, runs longer than several units, with one and two sets, on
+    aligned lanes and on lanes one byte off 16-byte alignment; values of
+    0-3 and of any int8 (the walk forward then runs to the lane's end)."""
+    rng = np.random.default_rng(n)
+    whole = np.zeros(n, bool), np.zeros(n, bool)
+    whole[0][0] = whole[1][-1] = True
+    each = np.ones(n, bool), np.ones(n, bool)
+    long_runs = _runs(rng, n, 20_000)
+    fine = _runs(rng, n, 9, within=long_runs[0])
+    for values in (rng.integers(0, 4, n + 1), rng.integers(-128, 128, n + 1)):
+        w = torch.from_numpy(values.astype(np.int8)).to(cuda)
+        for sets_np in ([whole], [each], [long_runs], [whole, each],
+                        [long_runs, fine], [each, long_runs]):
+            for off in (0, 1):
+                v = w[off:off + n]
+                sets = []
+                for start, end in sets_np:
+                    pair = []
+                    for m in (start, end):
+                        lane = torch.zeros(n + 1, dtype=torch.bool, device=cuda)
+                        lane[off:off + n] = torch.from_numpy(m).to(cuda)
+                        pair.append(lane[off:off + n])
+                    sets.append(tuple(pair))
+                got = scans.run_totals_fused(v, sets)
+                want = scans.run_totals_fused_plain(v, sets)
+                assert len(got) == len(sets)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_run_totals_kernel_back_to_back(cuda):
+    """50 calls of different lengths on one stream with no sync between
+    them: each call's look-back must read only its own descriptors."""
+    rng = np.random.default_rng(51)
+    calls = []
+    for n in rng.integers(1, 300_000, 50):
+        n = int(n)
+        v = torch.from_numpy(rng.integers(0, 4, n).astype(np.int8)).to(cuda)
+        coarse = _runs(rng, n, int(rng.integers(2, 30_000)))
+        fine = _runs(rng, n, 9, within=coarse[0])
+        sets = [tuple(torch.from_numpy(m).to(cuda) for m in pair)
+                for pair in ((coarse, fine) if n % 2 else (fine,))]
+        calls.append((v, sets))
+    torch.cuda.synchronize()
+    got = [scans.run_totals_fused(v, sets) for v, sets in calls]
+    for (v, sets), g in zip(calls, got):
+        assert all(torch.equal(a, b) for a, b in
+                   zip(g, scans.run_totals_fused_plain(v, sets)))
+
+
+def _check_citizen(got, want):
+    """Lanes bitwise; q within 2 ulp; a home hit may differ only where q
+    differs by exactly 1 ulp, and the census only by such hits."""
+    same = (got[5] == want[5]) | (got[5].isnan() & want[5].isnan())
+    ulp = torch.where(same, 0, (got[5].view(torch.int32).long()
+                                - want[5].view(torch.int32).long()).abs())
+    assert int(ulp.max()) <= 2
+    flip = ((got[3] & 4) != 0) != ((want[3] & 4) != 0)
+    assert not bool((flip & (ulp != 1)).any())
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a[~flip], b[~flip])
+    assert torch.equal(got[4][:7], want[4][:7])
+    assert abs(int(got[4][7]) - int(want[4][7])) <= int(flip.sum())
+
+
 @pytest.mark.parametrize("h24,move,mask_status,p0", [
     (8, True, 2, 0.00055), (9, True, 1, 0.05), (17, False, 0, 1.0),
 ])
@@ -184,15 +252,79 @@ def test_citizen_kernel_matches_plain(cuda, h24, move, mask_status, p0):
     statics = citizen.make_citizen_statics(world)
     got = citizen.citizen_phase(statics, status, timer, sched, **kw)
     want = citizen.citizen_phase_plain(statics, status, timer, sched, **kw)
-    same = (got[5] == want[5]) | (got[5].isnan() & want[5].isnan())
-    ulp = torch.where(same, 0, (got[5].view(torch.int32).long()
-                                - want[5].view(torch.int32).long()).abs())
-    assert int(ulp.max()) <= 2
-    flip = ((got[3] & 4) != 0) != ((want[3] & 4) != 0)
-    assert not bool((flip & (ulp != 1)).any())
-    for a, b in zip(got[:4], want[:4]):
-        assert torch.equal(a[~flip], b[~flip])
-    assert torch.equal(got[4][:7], want[4][:7])
+    _check_citizen(got, want)
+
+
+def _standin_world(rng, n, tile=4096, big=24):
+    """The lanes that citizen statics are packed from, for n citizens in
+    households of 1 to ``big``: one of ``big`` across every tile edge,
+    one at each end of the lane, the rest of random sizes."""
+    sizes, at = [], 0
+    cuts = [0] + [e - big // 2 for e in range(tile, n - big, tile)] + [n - big]
+    for cut in cuts:
+        while at < cut:
+            s = min(int(rng.integers(1, big + 1)), cut - at)
+            sizes.append(s)
+            at += s
+        if at == cut and cut + big <= n:
+            sizes.append(big)
+            at += big
+    while at < n:
+        s = min(int(rng.integers(1, big + 1)), n - at)
+        sizes.append(s)
+        at += s
+    size = np.repeat(sizes, sizes)
+    pos = np.concatenate([np.arange(s) for s in sizes])
+    hours = lambda: torch.from_numpy(rng.integers(0, 24, n).astype(np.int32))
+    bits = lambda: torch.from_numpy(rng.random(n) < 0.5)
+    ints = lambda lo, hi: torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32))
+    return SimpleNamespace(
+        work_start=hours(), work_end=hours(), uses_transport=bits(),
+        work_building=ints(0, 3), home_building=ints(0, 3),
+        hh_pos=torch.from_numpy(pos), hh_size=torch.from_numpy(size),
+        mask_compliant=bits(), work_oa=ints(0, 2), home_oa=ints(0, 2),
+        ws_work_start=hours(), ws_work_end=hours(),
+        ws_uses_transport=bits(),
+    ), int(max(sizes))
+
+
+@pytest.mark.parametrize("n", [1, 17, 4096 * 5, 50_003])
+@pytest.mark.parametrize("ref_mask_sem,u8_trunc", [
+    (True, True), (True, False), (False, True), (False, False)])
+def test_citizen_kernel_on_standin_households(cuda, n, ref_mask_sem, u8_trunc):
+    """B1 (tiles of 4,096 citizens): households of up to 24 across every
+    tile edge and at both lane ends, N not a multiple of 16 or of the
+    tile, all four flag combinations, exposure_chance 1 (q is NaN where
+    no housemate is infected), q asked for and not, and the state lanes
+    one byte off 16-byte alignment."""
+    rng = np.random.default_rng(n)
+    world, K = _standin_world(rng, n)
+    statics = citizen.CitizenStatics(
+        *(x.to(cuda) for x in citizen.make_citizen_statics(world)))
+    status_np = rng.choice(5, n + 1, p=[0.5, 0.1, 0.3, 0.05, 0.05]).astype(np.int8)
+    timer_np = rng.integers(0, 20, n + 1).astype(np.int32)
+    sched_np = rng.integers(0, 32, n + 1).astype(np.int8)
+    f32 = np.float32
+    for h24, move, mask_status, p0 in ((8, True, 2, 1.0), (9, True, 1, 0.05),
+                                       (17, False, 0, 0.3)):
+        kw = dict(h24=h24, move=move, mask_status=mask_status,
+                  seed=int(rng.integers(0, 2**32)), exposed_time=10,
+                  infected_time=15, exposure_chance=f32(p0),
+                  mask_scale=f32(1.0) - f32(0.7), K=K,
+                  ref_mask_sem=ref_mask_sem, u8_trunc=u8_trunc)
+        for off in (0, 1):
+            lanes = [torch.from_numpy(x[off:off + n]).to(cuda) if off == 0
+                     else torch.from_numpy(x).to(cuda)[1:]
+                     for x in (status_np, timer_np, sched_np)]
+            want = citizen.citizen_phase_plain(statics, *lanes, want_q=True, **kw)
+            got = citizen.citizen_phase(statics, *lanes, want_q=True, **kw)
+            _check_citizen(got, want)
+            if p0 == 1.0 and n > 1000:
+                assert bool(want[5].isnan().any())
+            got_noq = citizen.citizen_phase(statics, *lanes, **kw)
+            assert len(got_noq) == 5
+            for a, b in zip(got_noq, got[:5]):
+                assert torch.equal(a, b)
 
 
 def test_main_path_on_card_matches_cpu(cuda):

@@ -21,10 +21,11 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-#: the kernels of csrc/ on the step (B3 is cumsum_lookback after its
-#: descriptors' memset), listed after the top 20
-PORT_KERNELS = ("citizen_phase_kernel", "scan_summary", "scan_combine",
-                "scan_apply", "cumsum_lookback", "Memset")
+#: the kernels of csrc/ on the step, listed after the top 20: B1
+#: (citizen_tile), B2 (runs_reduce, runs_apply, after a memset of its
+#: descriptors) and B3 (cumsum_lookback, after a memset of its own)
+PORT_KERNELS = ("citizen_tile", "runs_reduce", "runs_apply",
+                "cumsum_lookback", "Memset")
 
 
 def main():
