@@ -22,13 +22,14 @@ Phases, each printing its elapsed seconds:
    citizens, 15,669 OAs, seed 0), ``init_state(seed=0,
    starting_infected=20_000)``, ``Params.covid()``, two chunks of 250
    steps, with each kernel's launches in that run;
-4. the cumsum path, ``sweep`` and ``turns`` of
+4. the cumsum path, ``path`` and ``turns`` of
    ``tools/probe_torch_cumsum.py`` (off the fused step): kernel B4
-   against its plain version bitwise on lanes of 3,457,142 and
-   63,000,000; then, with the launch counts set to 0, B3 and B4 at a
-   sweep of tile sizes on the 63M lane, each equal to ``torch.cumsum``
-   and timed beside it; then B3, B4 and ``torch.cumsum`` timed in turns
-   at both sizes;
+   against its plain version bitwise on lanes of 3,457,142 (0/1 and
+   signed) and 63,000,000; then, with the launch counts set to 0, B3 and
+   B4 on the 63M lane, each equal to ``torch.cumsum`` and timed beside
+   it; then B3, B4 and ``torch.cumsum`` timed in turns at both sizes.
+   B4's record carries its device time and device operations per call at
+   63M and its wrapper's host time per call at 3,457,142;
 5. the Beneš path, ``replay`` of ``tools/probe_torch_benes.py`` (off the
    fused step): the world's ``work_perm`` routed on the host; with the
    launch counts set to 0, kernel B5 replays a payload forward and in
@@ -93,16 +94,16 @@ def random_runs(rng, n, avg_run, within=None):
     return start, end
 
 
-def device_record(fn):
+def device_record(fn, host_fn=None):
     """A kernel's device time and device operations (kernels and
-    memsets) per call, from torch.profiler, and its wrapper's host time
-    per call with no sync."""
+    memsets) per call of ``fn``, from torch.profiler, and its wrapper's
+    host time per call of ``host_fn`` (by default ``fn``) with no sync."""
     from epidemicsimulator_tpu_torch import runtime
 
     rows = runtime.device_ms(fn)
     return dict(device_ms=sum(ms for ms, _ in rows.values()),
                 device_ops=sum(c for _, c in rows.values()),
-                host_us=runtime.host_us(fn))
+                host_us=runtime.host_us(host_fn or fn))
 
 
 def check_kernels(world_dev, rng):
@@ -287,40 +288,44 @@ def check_cumsum_path(rng, card):
         "the probe's 63M lane": probe.lane(),
     }
     for name, v in lanes.items():
-        for t in (1024, probe.B4_TILE, 1_048_576):
-            got = scans.cumsum_i8_2phase(v, tile_elems=t)
-            if not torch.equal(got, scans.cumsum_i8_2phase_plain(v, tile_elems=t)):
-                raise AssertionError(
-                    f"cumsum_i8_2phase disagrees with its plain version "
-                    f"({name}, tile_elems={t})")
+        if not torch.equal(scans.cumsum_i8_2phase(v),
+                           scans.cumsum_i8_2phase_plain(v)):
+            raise AssertionError(
+                f"cumsum_i8_2phase disagrees with its plain version ({name})")
     say("B4 cumsum_i8_2phase: bitwise equal to its plain version at "
-        f"N = {N_CITIZENS:,} (0/1 and signed lanes) and N = {probe.N_UK:,}, "
-        f"tiles 1024, {probe.B4_TILE}, 1048576")
+        f"N = {N_CITIZENS:,} (0/1 and signed lanes) and N = {probe.N_UK:,}")
     v = lanes["the probe's 63M lane"]
-    res = probe.sweep(v)
-    say(f"cumsum path, N = {probe.N_UK:,}: B4 ms by tile "
-        + ", ".join(f"{t}: {ms:.4f}" for t, ms in res["cumsum_i8_2phase_ms"].items())
-        + f"; B3 {res['cumsum_i8_ms']:.4f} ms; torch.cumsum "
-        f"{res['torch_cumsum_ms']:.4f} ms; B3 and B4 equal to torch.cumsum; "
+    res = probe.path(v)
+    say(f"cumsum path, N = {probe.N_UK:,}: B4 {res['cumsum_i8_2phase']:.4f} "
+        f"ms, B3 {res['cumsum_i8']:.4f} ms, torch.cumsum "
+        f"{res['torch.cumsum']:.4f} ms; B3 and B4 equal to torch.cumsum; "
         f"launches {res['launches']}")
     for name, lane in (("N = 3,457,142", lanes["0/1, p = 0.3"]),
                        (f"N = {probe.N_UK:,}", v)):
-        t, dev = probe.turns(lane)
+        t, dev_rows = probe.turns(lane)
         say(f"cumsum in turns on {card}, {name}, ms per round: " + "; ".join(
             f"{fn} {' '.join(f'{ms:.4f}' for ms in ms_list)}"
             for fn, ms_list in t.items()) + "; device ms per call: "
-            + "; ".join(f"{fn} {ms:.4f}" for fn, ms in dev.items()))
+            + "; ".join(f"{fn} {probe.device_sum(rows)[0]:.4f}"
+                        for fn, rows in dev_rows.items()))
     t_b, by = bound(probe.N_UK * (1 + 4), 2 * probe.N_UK)
-    return dict(
+    rec = dict(
         name="cumsum_i8_2phase", route="cuda",
         source="epidemicsimulator_tpu_torch/csrc/scans.cu",
         replaces="epidemicsimulator_tpu/ops/pallas_scans.py:245",
         path="cumsum", launches=res["launches"]["cumsum_i8_2phase"],
-        max_abs_err=0.0, ms=res["cumsum_i8_2phase_ms"][probe.B4_TILE],
-        plain_ms=runtime.cuda_ms(lambda: scans.cumsum_i8_2phase_plain(
-            v, tile_elems=probe.B4_TILE)),
-        bound_ms=t_b, bound_by=by, library_ms=res["torch_cumsum_ms"],
+        max_abs_err=0.0, ms=res["cumsum_i8_2phase"],
+        plain_ms=runtime.cuda_ms(lambda: scans.cumsum_i8_2phase_plain(v)),
+        bound_ms=t_b, bound_by=by, library_ms=res["torch.cumsum"],
+        **device_record(
+            lambda: scans.cumsum_i8_2phase(v),
+            lambda: scans.cumsum_i8_2phase(lanes["0/1, p = 0.3"])),
     )
+    say(f"B4 cumsum_i8_2phase at N = {probe.N_UK:,}: {rec['device_ms']:.4f} "
+        f"ms of device time in {rec['device_ops']:g} device operations per "
+        f"call; its wrapper {rec['host_us']:.2f} us of host time per call "
+        f"at N = {N_CITIZENS:,}")
+    return rec
 
 
 def check_benes_path(world, world_dev, rng, card):
@@ -454,7 +459,7 @@ def main():
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         host = pool.submit(runtime.build_host)
-        path, log = runtime.build(extra_flags=("-Xptxas", "-v"))
+        path, log = runtime.build()
         host_path = host.result()[0]
     say(f"built {os.path.relpath(path, ROOT)} and "
         f"{os.path.relpath(host_path, ROOT)} in {time.perf_counter() - t:.2f}s")

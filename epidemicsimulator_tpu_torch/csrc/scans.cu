@@ -1,9 +1,9 @@
 // Run totals (B2) and the int8 cumsum (B3) of the fused step, and the
-// two-phase cumsum's apply (B4), for Hopper.
+// two-phase int8 cumsum (B4), for Hopper.
 //
 // Replaces epidemicsimulator_tpu/ops/pallas_scans.py: run_totals_fused
 // (_summary_kernel + _apply_kernel), cumsum_pallas (_cumsum_kernel) and
-// _cumsum_pallas2 (_cumsum_apply_kernel).
+// _cumsum_pallas2 (its XLA block sums and _cumsum_apply_kernel).
 // On the TPU the grid runs in order and cumsum_pallas carries its running
 // total from block to block in SMEM.  Here blocks run in parallel.
 //
@@ -73,13 +73,36 @@
 //     cudaMemsetAsync before each launch: two device operations per call,
 //     no host sync, and nothing read from an earlier call.
 //
-// B4 keeps the JAX package's split: the caller computes each tile's sum
-// and their exclusive cumsum (plain torch ops, as XLA did), and
-// cumsum_apply rescans each tile from its base.  A tile (tile_elems, a
-// runtime multiple of CHUNK) is one block, which walks it in chunks of
-// CHUNK elements with the running carry in a register; each thread
-// writes its four int32 results as one 16-byte store.  Bound: memory,
-// 1 byte read and 4 written per element, plus one read for the sums.
+// B4 is two passes over units of UNIT (16,384) elements, behind one
+// 16-byte memset (its ticket); no block waits on another, which is what
+// sets it apart from B3.  Its bound is B3's, 0.094 ms at 63M; two passes
+// read the lane twice, and a lane larger than the 50 MB L2 is read twice
+// from device memory, so no two-pass form goes below (2 * 63 + 252) MB /
+// 3.35 TB/s = 0.113 ms there.  What it does about that:
+//
+//   reduce  each block reads its unit once (16-byte loads) and writes the
+//           unit's sum; the last block to finish (the ticket) turns the
+//           sums into each unit's inclusive prefix in place, 1,024 units
+//           per round (scan_units, shared with B2's reduce).
+//   apply   each block reads a unit again and writes its inclusive
+//           cumsum from the prefix of the unit before it, as B3 writes a
+//           tile once it has its prefix: 16 elements per thread in
+//           16-byte loads, one block scan over the unit's four sub-tiles
+//           at once (scan_tile), the int32 results staged through the
+//           XOR-swizzled tile and written as 16-byte stores.  Its blocks
+//           take the units from the last to the first, so that the first
+//           of them find the lane's tail, which the reduce read last,
+//           still in L2.
+//
+// Both grids are one block per unit, so the card is full from a few
+// million elements up.  Measured on the H100 at 3,457,142 and 63M, each
+// of these was slower or no faster: units of 4,096 and 8,192 (the reduce
+// pays for the blocks) and of 32,768 (a little faster at 63M, slower at
+// 3,457,142, where its 106 units leave SMs idle); a reduce block that sums several units with the next unit's
+// loads in flight; a last block that scans 4,096 units per round; an
+// L2::256B hint on the reduce's loads; the apply in the reduce's order;
+// a block scan per sub-tile in place of scan_tile's one (B3 takes that
+// one too).
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -95,76 +118,155 @@ constexpr int ITEMS = 16;
 constexpr int TILE = THREADS * ITEMS;
 constexpr unsigned FULL = 0xffffffffu;
 
-struct Add { __device__ int operator()(int a, int b) const { return a + b; } };
-
-// Exclusive scan of one value per thread in thread order (identity for
-// thread 0).  smem holds WARPS ints; every thread of the block must call.
-template <class Op>
-__device__ int block_scan_excl(int x, int identity, Op op, int* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = x;
-  for (int d = 1; d < 32; d <<= 1) {
-    int y = __shfl_up_sync(FULL, incl, d);
-    if (lane >= d) incl = op(y, incl);
-  }
-  if (lane == 31) smem[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < WARPS ? smem[lane] : identity;
-    for (int d = 1; d < 32; d <<= 1) {
-      int y = __shfl_up_sync(FULL, w, d);
-      if (lane >= d) w = op(y, w);
-    }
-    if (lane < WARPS) smem[lane] = w;
-  }
-  __syncthreads();
-  int before = __shfl_up_sync(FULL, incl, 1);
-  if (lane == 0) before = identity;
-  int result = op(warp > 0 ? smem[warp - 1] : identity, before);
-  __syncthreads();
-  return result;
+__device__ inline int warp_sum(int x) {
+  for (int d = 16; d; d >>= 1) x += __shfl_xor_sync(FULL, x, d);
+  return x;
 }
 
-constexpr int APPLY_ITEMS = 4;
-constexpr int CHUNK = THREADS * APPLY_ITEMS;
+// The generic block scan and the last block's scan of the units (B2 and
+// B4) join values in order with join(a, b) ("a, then b") and move them
+// across lanes with shfl_up; these are an int's, a sum.  B2's aggregate
+// has its own below.
+__device__ inline int join(int a, int b) { return a + b; }
+__device__ inline int shfl_up(int a, int d) {
+  return __shfl_up_sync(FULL, a, d);
+}
 
-// One block per tile: out[i] = base[tile] + (inclusive cumsum of v over
-// the tile up to i).  tile_elems is a multiple of CHUNK.
-__global__ void cumsum_apply(const int8_t* v, const int* base, long long n,
-                             long long tile_elems, int* out) {
-  __shared__ int smem[WARPS];
-  __shared__ int chunk_total;
-  const long long t0 = (long long)blockIdx.x * tile_elems;
-  const long long t1 = t0 + tile_elems < n ? t0 + tile_elems : n;
-  int carry = base[blockIdx.x];
-  for (long long c0 = t0; c0 < t1; c0 += CHUNK) {
-    const long long i0 = c0 + threadIdx.x * APPLY_ITEMS;
-    int vals[APPLY_ITEMS];
-    int tsum = 0;
+// The exclusive join of the threads before this one, in thread order, and
+// (in `total`) the whole block's; every thread must call.  smem holds
+// WARPS values.
+template <class T>
+__device__ inline T block_scan(T x, T identity, T* smem, T& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-    for (int e = 0; e < APPLY_ITEMS; ++e) {
-      vals[e] = i0 + e < t1 ? (int)v[i0 + e] : 0;
-      tsum += vals[e];
-    }
-    // block_scan_excl ends in a barrier, so every thread has read the
-    // previous chunk's total before it is overwritten here
-    int run = carry + block_scan_excl(tsum, 0, Add(), smem);
-    if (threadIdx.x == THREADS - 1) chunk_total = run - carry + tsum;
+  for (int d = 1; d < 32; d <<= 1) {
+    const T o = shfl_up(x, d);
+    if (lane >= d) x = join(o, x);
+  }
+  if (lane == 31) smem[warp] = x;
+  T pre = shfl_up(x, 1);
+  if (lane == 0) pre = identity;
+  __syncthreads();
+  for (int w = warp - 1; w >= 0; --w) pre = join(smem[w], pre);
+  total = smem[0];
 #pragma unroll
-    for (int e = 0; e < APPLY_ITEMS; ++e) {
-      run += vals[e];
-      vals[e] = run;
-    }
-    if (i0 + APPLY_ITEMS <= t1) {
-      *reinterpret_cast<int4*>(out + i0) =
-          make_int4(vals[0], vals[1], vals[2], vals[3]);
-    } else {
+  for (int w = 1; w < WARPS; ++w) total = join(total, smem[w]);
+  __syncthreads();
+  return pre;
+}
+
+// The last block's scan over nb units: load(p) gives unit p's aggregate,
+// and store(p, x) takes x, the join of units 0 .. p, once all of the
+// round's loads are done.  WINDOW units per round, LOOK per thread;
+// every thread of the block must call.  (B3's look-back also reads LOOK
+// descriptors per lane per round.)
+constexpr int LOOK = 4;
+constexpr int WINDOW = THREADS * LOOK;
+
+template <class T, class Load, class Store>
+__device__ void scan_units(int nb, T identity, Load load, Store store,
+                           T* smem) {
+  const int t = threadIdx.x;
+  T carry = identity;
+  for (int lo = 0; lo < nb; lo += WINDOW) {
+    T y[LOOK], x = identity;
 #pragma unroll
-      for (int e = 0; e < APPLY_ITEMS; ++e)
-        if (i0 + e < t1) out[i0 + e] = vals[e];
+    for (int i = 0; i < LOOK; ++i) {
+      const int p = lo + LOOK * t + i;
+      y[i] = p < nb ? load(p) : identity;
+      x = join(x, y[i]);
     }
-    __syncthreads();
-    carry += chunk_total;
+    T total;
+    T pre = join(carry, block_scan(x, identity, smem, total));
+#pragma unroll
+    for (int i = 0; i < LOOK; ++i) {
+      const int p = lo + LOOK * t + i;
+      pre = join(pre, y[i]);
+      if (p < nb) store(p, pre);
+    }
+    carry = join(carry, total);
+  }
+}
+
+// B3's tiles and B4's units: V sub-tiles of TILE elements, thread t
+// holding elements 16t .. 16t + 15 of each, as bytes in four words.
+template <int V>
+__device__ inline void load_tile(const int8_t* v, long long base,
+                                 long long n, bool aligned,
+                                 uint32_t (&w)[V][4]) {
+#pragma unroll
+  for (int u = 0; u < V; ++u)
+    tileio::load_bytes<ITEMS>(v, base + u * TILE + threadIdx.x * ITEMS, n,
+                              aligned, w[u]);
+}
+
+__device__ inline int thread_sum(const uint32_t (&w)[4], int s = 0) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) s = __dp4a((int)w[q], 0x01010101, s);
+  return s;
+}
+
+// In excl[u], the sum of the tile's elements before thread t's in
+// sub-tile u; returns the tile's sum.  One block scan over all V
+// sub-tiles at once: each warp scans V sums per lane, and every thread
+// reads the V x WARPS warp totals after one barrier.  smem holds
+// V * WARPS ints; every thread must call.
+template <int V>
+__device__ inline int scan_tile(const uint32_t (&w)[V][4], int (&excl)[V],
+                                int* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) incl[u] = thread_sum(w[u]);
+  int own[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) own[u] = incl[u];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int y = __shfl_up_sync(FULL, incl[u], d);
+      if (lane >= d) incl[u] += y;
+    }
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int u = 0; u < V; ++u) smem[u * WARPS + warp] = incl[u];
+  }
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    int before = 0, all = 0;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) {
+      const int s = smem[u * WARPS + k];
+      before += k < warp ? s : 0;
+      all += s;
+    }
+    excl[u] = total + before + incl[u] - own[u];
+    total += all;
+  }
+  return total;
+}
+
+// Writes prefix + the inclusive cumsum of the tile at `base` to out (none
+// at or past n) through the staging tile.
+template <int V>
+__device__ inline void store_tile(const uint32_t (&w)[V][4],
+                                  const int (&excl)[V], int prefix, int* out,
+                                  long long base, long long n, int4* stage) {
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    if (u > 0) __syncthreads();  // the previous sub-tile's reads are done
+    int run = prefix + excl[u];
+    int r[ITEMS];
+#pragma unroll
+    for (int e = 0; e < ITEMS; ++e) {
+      run += (int)(int8_t)tileio::byte_at(w[u], e);
+      r[e] = run;
+    }
+    tileio::store_words<THREADS>(out, base + u * TILE, n, stage, r);
   }
 }
 
@@ -187,18 +289,11 @@ __device__ inline unsigned long long peek(const unsigned long long* p) {
   return w;
 }
 
-__device__ inline int warp_sum(int x) {
-  for (int d = 16; d; d >>= 1) x += __shfl_xor_sync(FULL, x, d);
-  return x;
-}
-
 // The exclusive prefix of tile `tile`, from the descriptors of the tiles
 // before it; called by warp 0.  Each round reads a window of 32 x LOOK
 // tiles, nearest first (lane l holds tiles end - LOOK*l - i), with LOOK
 // independent loads in flight per lane, and stops at the nearest tile
 // that holds its inclusive prefix (tiles before 0 read as prefix 0).
-constexpr int LOOK = 4;
-
 __device__ int look_back(const unsigned long long* desc, int tile) {
   const int lane = threadIdx.x & 31;
   int prefix = 0;
@@ -243,7 +338,7 @@ __global__ void __launch_bounds__(THREADS)
 cumsum_lookback(const int8_t* v, long long n, int* out,
                 unsigned long long* desc, unsigned* ticket) {
   __shared__ int4 stage[TILE / 4];
-  __shared__ int smem[WARPS];
+  __shared__ int smem[VEC * WARPS];
   __shared__ int tile_sh, prefix_sh;
   const int t = threadIdx.x;
   if (t == 0) tile_sh = (int)atomicAdd(ticket, 1u);
@@ -252,22 +347,8 @@ cumsum_lookback(const int8_t* v, long long n, int* out,
   const long long base = (long long)tile * VEC * TILE;
   uint32_t w[VEC][4];
   int excl[VEC];
-  const bool aligned = ((uintptr_t)v & 15) == 0;
-#pragma unroll
-  for (int u = 0; u < VEC; ++u)
-    tileio::load_bytes<ITEMS>(v, base + u * TILE + t * ITEMS, n, aligned, w[u]);
-  int total = 0;
-#pragma unroll
-  for (int u = 0; u < VEC; ++u) {
-    int tsum = 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) tsum = __dp4a((int)w[u][q], 0x01010101, tsum);
-    excl[u] = total + block_scan_excl(tsum, 0, Add(), smem);
-    // block_scan_excl leaves the inclusive scan of the warp totals in
-    // smem, so its last entry is the sub-tile's sum
-    total += smem[WARPS - 1];
-    if (u + 1 < VEC) __syncthreads();  // read before the next scan writes
-  }
+  load_tile<VEC>(v, base, n, ((uintptr_t)v & 15) == 0, w);
+  const int total = scan_tile<VEC>(w, excl, smem);
   if (t < 32) {
     int prefix = 0;
     if (tile == 0) {
@@ -280,19 +361,59 @@ cumsum_lookback(const int8_t* v, long long n, int* out,
     if (t == 0) prefix_sh = prefix;
   }
   __syncthreads();
-  const int prefix = prefix_sh;
+  store_tile<VEC>(w, excl, prefix_sh, out, base, n, stage);
+}
+
+// B4.  A unit of UNIT_VEC x TILE elements per block in both passes.
+constexpr int UNIT_VEC = 4;
+constexpr int UNIT = UNIT_VEC * TILE;
+
+// Pass 1: the sum of unit blockIdx.x into incl; then the last block to
+// finish (an atomic ticket) turns incl into each unit's inclusive prefix.
+__global__ void __launch_bounds__(THREADS)
+cumsum_reduce(const int8_t* v, long long n, bool aligned, int* incl,
+              unsigned* ticket, int nb) {
+  __shared__ int smem[WARPS];
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  uint32_t w[UNIT_VEC][4];
+  load_tile<UNIT_VEC>(v, (long long)blockIdx.x * UNIT, n, aligned, w);
+  int s = 0;
 #pragma unroll
-  for (int u = 0; u < VEC; ++u) {
-    if (u > 0) __syncthreads();  // the previous sub-tile's reads are done
-    int run = prefix + excl[u];
-    int r[ITEMS];
+  for (int u = 0; u < UNIT_VEC; ++u) s = thread_sum(w[u], s);
+  s = warp_sum(s);
+  if ((t & 31) == 0) smem[t >> 5] = s;
+  __syncthreads();
+  if (t == 0) {
+    int total = 0;
 #pragma unroll
-    for (int e = 0; e < ITEMS; ++e) {
-      run += (int)(int8_t)tileio::byte_at(w[u], e);
-      r[e] = run;
-    }
-    tileio::store_words<THREADS>(out, base + u * TILE, n, stage, r);
+    for (int k = 0; k < WARPS; ++k) total += smem[k];
+    incl[blockIdx.x] = total;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == (unsigned)nb - 1;
   }
+  __syncthreads();
+  if (!last) return;
+  scan_units(
+      nb, 0, [&](int p) { return __ldcg(incl + p); },
+      [&](int p, int x) { incl[p] = x; }, smem);
+}
+
+// Pass 2: the cumsum of unit nb - 1 - blockIdx.x from the inclusive
+// prefix of the unit before it.
+__global__ void __launch_bounds__(THREADS)
+cumsum_apply(const int8_t* v, long long n, bool aligned, const int* incl,
+             int* out, int nb) {
+  __shared__ int4 stage[TILE / 4];
+  __shared__ int smem[UNIT_VEC * WARPS];
+  const int unit = nb - 1 - (int)blockIdx.x;
+  const long long base = (long long)unit * UNIT;
+  const int prefix = unit > 0 ? incl[unit - 1] : 0;
+  uint32_t w[UNIT_VEC][4];
+  int excl[UNIT_VEC];
+  load_tile<UNIT_VEC>(v, base, n, aligned, w);
+  scan_tile<UNIT_VEC>(w, excl, smem);
+  store_tile<UNIT_VEC>(w, excl, prefix, out, base, n, stage);
 }
 
 // B2.  A unit of TILE elements; thread t holds elements 16t .. 16t + 15.
@@ -452,38 +573,10 @@ __device__ inline Agg<NSETS> thread_agg(const uint32_t (&V)[4],
   return a;
 }
 
-// The last reduce block and the look-forward's fallback walk take WINDOW
-// units per round, LOOK per thread.
-constexpr int WINDOW = THREADS * LOOK;
-
-// The exclusive join of the threads before this one, in thread order, and
-// (in `total`) the whole block's; every thread must call.  smem holds
-// WARPS Aggs.
-template <int NSETS>
-__device__ inline Agg<NSETS> block_scan(Agg<NSETS> x, Agg<NSETS>* smem,
-                                        Agg<NSETS>& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const Agg<NSETS> o = shfl_up(x, d);
-    if (lane >= d) x = join(o, x);
-  }
-  if (lane == 31) smem[warp] = x;
-  Agg<NSETS> pre = shfl_up(x, 1);
-  if (lane == 0) pre = agg_identity<NSETS>();
-  __syncthreads();
-  for (int w = warp - 1; w >= 0; --w) pre = join(smem[w], pre);
-  total = smem[0];
-#pragma unroll
-  for (int w = 1; w < WARPS; ++w) total = join(total, smem[w]);
-  __syncthreads();
-  return pre;
-}
-
 // Pass 1: each unit's aggregate; then the last block to finish (an
 // atomic ticket) turns the aggregates into each unit's inclusive prefix
-// (sum and largest start prefix per set), 4 units per thread per round
-// of 1,024 units.  No block waits on another.
+// (sum and largest start prefix per set) by scan_units.  No block waits
+// on another.
 template <int NSETS>
 __global__ void __launch_bounds__(THREADS)
 runs_reduce(const int8_t* v, RunMasks m, long long n, bool aligned,
@@ -516,34 +609,21 @@ runs_reduce(const int8_t* v, RunMasks m, long long n, bool aligned,
   }
   __syncthreads();
   if (!last) return;
-  Agg<NSETS> carry = agg_identity<NSETS>();
-  for (int lo = 0; lo < nb; lo += WINDOW) {
-    Agg<NSETS> y[LOOK], x = agg_identity<NSETS>();
+  scan_units(
+      nb, agg_identity<NSETS>(),
+      [&](int p) {
+        Agg<NSETS> y = agg_identity<NSETS>();
+        y.s = __ldcg(mem.agg_s + p);
 #pragma unroll
-    for (int i = 0; i < LOOK; ++i) {
-      const int p = lo + LOOK * t + i;
-      y[i] = agg_identity<NSETS>();
-      if (p < nb) {
-        y[i].s = __ldcg(mem.agg_s + p);
+        for (int k = 0; k < NSETS; ++k) y.mx[k] = __ldcg(mem.agg_mx + k * nb + p);
+        return y;
+      },
+      [&](int p, const Agg<NSETS>& x) {
+        mem.incl_s[p] = x.s;
 #pragma unroll
-        for (int k = 0; k < NSETS; ++k) y[i].mx[k] = __ldcg(mem.agg_mx + k * nb + p);
-      }
-      x = join(x, y[i]);
-    }
-    Agg<NSETS> total;
-    Agg<NSETS> pre = join(carry, block_scan(x, wagg, total));
-#pragma unroll
-    for (int i = 0; i < LOOK; ++i) {
-      const int p = lo + LOOK * t + i;
-      pre = join(pre, y[i]);
-      if (p < nb) {
-        mem.incl_s[p] = pre.s;
-#pragma unroll
-        for (int k = 0; k < NSETS; ++k) mem.incl_mx[k * nb + p] = pre.mx[k];
-      }
-    }
-    carry = join(carry, total);
-  }
+        for (int k = 0; k < NSETS; ++k) mem.incl_mx[k * nb + p] = x.mx[k];
+      },
+      wagg);
 }
 
 // The units after `unit` joined in order, relative to the first element
@@ -580,7 +660,7 @@ __device__ Agg<NSETS> runs_look_forward(const RunMem& mem, int unit,
       x = join(x, y);
     }
     Agg<NSETS> total;
-    block_scan(x, smem, total);
+    block_scan(x, agg_identity<NSETS>(), smem, total);
     acc = join(acc, total);
     ends = true;
 #pragma unroll
@@ -730,20 +810,26 @@ extern "C" int es_run_totals_i8(const void* v, const void* start0,
                        (int)nb, (int*)out0, (int*)out1, (cudaStream_t)stream);
 }
 
-// B4's apply: the tiles' elements are a multiple of this.
-extern "C" int es_cumsum_apply_chunk() { return CHUNK; }
-
-// B4's apply: out[i] = base[i / tile_elems] + the inclusive cumsum of v
-// over i's tile up to i.  out must be 16-byte aligned.
-extern "C" int es_cumsum_apply_i8(const void* v, const void* base, void* out,
-                                  long long n, long long tile_elems,
-                                  void* stream) {
-  if (n <= 0 || tile_elems <= 0 || tile_elems % CHUNK != 0 ||
-      ((uintptr_t)out & 15) != 0)
+// B4: out[i] = v[0] + ... + v[i] in int32, for n >= 1, in two passes
+// over nb = ceil(n / UNIT) units.  scratch holds 4 + nb ints: the ticket
+// and three pads, zeroed here in stream order before the launches, then
+// each unit's sum, which the reduce pass turns into its inclusive prefix.
+// out and scratch must be 16-byte aligned; v may have any alignment.
+extern "C" int es_cumsum_i8_2phase(const void* v, void* out, void* scratch,
+                                   long long scratch_bytes, long long n,
+                                   void* stream) {
+  const long long nb = (n + UNIT - 1) / UNIT;
+  if (n <= 0 || nb > 0x7fffffffLL || scratch_bytes < (4 + nb) * 4 ||
+      (((uintptr_t)out | (uintptr_t)scratch) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const long long tiles = (n + tile_elems - 1) / tile_elems;
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cumsum_apply<<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)v, (const int*)base, n, tile_elems, (int*)out);
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, 4 * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  const bool aligned = ((uintptr_t)v & 15) == 0;
+  int* incl = (int*)scratch + 4;
+  cumsum_reduce<<<(unsigned)nb, THREADS, 0, st>>>(
+      (const int8_t*)v, n, aligned, incl, (unsigned*)scratch, (int)nb);
+  cumsum_apply<<<(unsigned)nb, THREADS, 0, st>>>(
+      (const int8_t*)v, n, aligned, incl, (int*)out, (int)nb);
   return (int)cudaGetLastError();
 }

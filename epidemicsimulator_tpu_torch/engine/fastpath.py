@@ -179,7 +179,7 @@ def fast_step(world, params, cfg, state: SimState, tables=None):
     )
     census = totals.tolist()  # the step's one device read
     hit_home = (gates & 4) != 0
-    record_oa = cfg.record_exposures_per_oa
+    record_oa = cfg.record_exposures_per_oa and tables.oa_lo.shape[0] > 0
 
     def p_fn(compliant, on_bus):
         return _exposure_p(p0, mask_scale, state.mask_status, compliant,

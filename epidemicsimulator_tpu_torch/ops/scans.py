@@ -1,5 +1,5 @@
 """Kernels B2 and B3 of the step, contiguous-run totals and the int8
-cumsum, and B4, the two-phase int8 cumsum, with their plain torch
+cumsum, and B4, the same cumsum in two passes, with their plain torch
 versions.
 
 B2 ``run_totals_fused`` replaces ``epidemicsimulator_tpu/ops/
@@ -27,9 +27,10 @@ LOOKBACK_TILE = 16_384
 #: 2 + 3 * n_sets ints per unit
 RUN_TOTALS_UNIT = 4096
 
-#: B4's tiles hold a multiple of this many elements (the kernel's chunk,
-#: ``es_cumsum_apply_chunk`` in csrc/scans.cu)
-CUMSUM_CHUNK = 1024
+#: B4's unit (``UNIT`` in csrc/scans.cu), in the plain version too; its
+#: scratch holds 4 ints and one per unit, and the kernel refuses scratch
+#: sized for a larger unit
+CUMSUM_UNIT = 16_384
 
 
 def _i8_lane(v, name):
@@ -66,62 +67,43 @@ def cumsum_i8(v):
     return buf[:n]
 
 
-def _check_tile(tile_elems):
-    if tile_elems <= 0 or tile_elems % CUMSUM_CHUNK:
-        raise ValueError(
-            f"tile_elems must be a positive multiple of {CUMSUM_CHUNK}")
-
-
-def _tile_bases(v, tile_elems):
-    """B4's first phase, in torch: each tile's sum and their exclusive
-    cumsum (int32, one per tile)."""
-    n = v.shape[0]
-    full, tail = divmod(n, tile_elems)
-    sums = torch.empty(full + (tail > 0), dtype=torch.int32, device=v.device)
-    torch.sum(v[:full * tile_elems].view(full, tile_elems), 1,
-              dtype=torch.int32, out=sums[:full])
-    if tail:
-        sums[full] = v[full * tile_elems:].sum(dtype=torch.int32)
-    return torch.cumsum(sums, 0, dtype=torch.int32) - sums
-
-
-def cumsum_i8_2phase_plain(v, *, tile_elems):
+def cumsum_i8_2phase_plain(v):
+    """B4's arithmetic written out: each unit's sum, their exclusive
+    cumsum, then each unit's cumsum from its base."""
     v = _i8_lane(v.contiguous(), "cumsum_i8_2phase")
-    _check_tile(tile_elems)
     n = v.shape[0]
-    tiles = torch.zeros(-(-n // tile_elems) * tile_elems, dtype=torch.int32,
+    units = torch.zeros(-(-n // CUMSUM_UNIT) * CUMSUM_UNIT, dtype=torch.int32,
                         device=v.device)
-    tiles[:n] = v
-    tiles = tiles.view(-1, tile_elems)
-    sums = tiles.sum(1, dtype=torch.int32)
+    units[:n] = v
+    units = units.view(-1, CUMSUM_UNIT)
+    sums = units.sum(1, dtype=torch.int32)
     base = torch.cumsum(sums, 0, dtype=torch.int32) - sums
-    return (torch.cumsum(tiles, 1, dtype=torch.int32)
+    return (torch.cumsum(units, 1, dtype=torch.int32)
             + base[:, None]).view(-1)[:n]
 
 
-def cumsum_i8_2phase(v, *, tile_elems):
-    """Inclusive int32 cumsum of an (N,) int8 (or bool) lane in two
-    phases: the tiles' sums and their exclusive cumsum in torch, then the
-    kernel rescans each tile of ``tile_elems`` elements (a multiple of
-    :data:`CUMSUM_CHUNK`) from its base.  Equals :func:`cumsum_i8`."""
+def cumsum_i8_2phase(v):
+    """Inclusive int32 cumsum of an (N,) int8 lane (or a bool lane, read
+    as 0/1) whose total fits int32, in two passes over units of
+    :data:`CUMSUM_UNIT` elements: the units' sums and their prefixes, then
+    each unit's cumsum from its prefix.  Equals :func:`cumsum_i8`."""
     if v.device.type == "cpu":
-        return cumsum_i8_2phase_plain(v, tile_elems=tile_elems)
+        return cumsum_i8_2phase_plain(v)
     v = _i8_lane(v.contiguous(), "cumsum_i8_2phase")
-    _check_tile(tile_elems)
     n = v.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=v.device)
     if n == 0:
-        return out
-    base = _tile_bases(v, tile_elems)
-    lib = runtime.library()
-    if lib.es_cumsum_apply_chunk() != CUMSUM_CHUNK:
-        raise RuntimeError("cumsum_i8_2phase: the kernel's chunk differs")
-    err = lib.es_cumsum_apply_i8(v.data_ptr(), base.data_ptr(),
-                                 out.data_ptr(), n, tile_elems,
-                                 runtime.stream_handle())
+        return torch.empty(0, dtype=torch.int32, device=v.device)
+    # one allocation: the output, padded to 16 bytes, then the kernels'
+    # scratch of a ticket, three pads and one int per unit
+    n16 = -(-n // 4) * 4
+    scratch = 4 + -(-n // CUMSUM_UNIT)
+    buf = torch.empty(n16 + scratch, dtype=torch.int32, device=v.device)
+    err = runtime.library().es_cumsum_i8_2phase(
+        v.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * n16, 4 * scratch,
+        n, runtime.stream_handle())
     runtime.check(err, "cumsum_i8_2phase")
     runtime.launches["cumsum_i8_2phase"] += 1
-    return out
+    return buf[:n]
 
 
 def range_totals(v, lo, hi):

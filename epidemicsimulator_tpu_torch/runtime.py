@@ -5,8 +5,9 @@ The kernels in ``csrc/*.cu`` have a plain C interface.  The first call
 that needs them compiles every source with its own ``nvcc`` process, all
 started together, and links the objects into one shared library under
 ``<checkout>/build/kernels/`` (the file name carries a hash of the
-sources and flags, so a changed source builds anew and a finished build
-is never reused by mistake); ``ctypes`` loads it.  Nothing here includes
+sources and of every flag the build passes, so a changed source or an
+extra flag builds anew and a finished build is never reused by
+mistake); ``ctypes`` loads it.  Nothing here includes
 PyTorch's C++ headers: that build takes minutes, this one seconds.  The
 host code in ``csrc/*.cpp`` (the Beneš router) is built the same way
 with the host C++ compiler into a second library.  Each library is
@@ -29,9 +30,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+# -Xptxas -v changes no code: it puts each kernel's registers and shared
+# memory in the build's log
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
@@ -48,8 +51,7 @@ _SIGNATURES = {
     "es_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "es_cumsum_i8": (
         [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P], ctypes.c_int),
-    "es_cumsum_apply_chunk": ([], ctypes.c_int),
-    "es_cumsum_apply_i8": (
+    "es_cumsum_i8_2phase": (
         [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P], ctypes.c_int),
     "es_benes_permute": (
         [_P, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int, _P],
@@ -103,9 +105,11 @@ def _library_path(stem: str, flags, sources) -> Path:
     return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def library_path() -> Path:
+def library_path(extra_flags: tuple[str, ...] = ()) -> Path:
+    """Where :func:`build` puts the library built with ``extra_flags``
+    added to ``NVCC_FLAGS``."""
     return _library_path(
-        "libesim_kernels", NVCC_FLAGS,
+        "libesim_kernels", (*NVCC_FLAGS, *extra_flags),
         sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")))
 
 
@@ -154,9 +158,10 @@ def _build_into(path: Path, make) -> tuple[Path, str]:
 
 
 def build(extra_flags: tuple[str, ...] = ()) -> tuple[Path, str]:
-    """Compile ``csrc/*.cu`` into the shared library unless it exists:
-    one ``nvcc -c`` per source, all at once, then one link.  Returns
-    (path, compiler output)."""
+    """Compile ``csrc/*.cu`` with ``extra_flags`` into the shared library
+    unless it exists: one ``nvcc -c`` per source, all at once, then one
+    link.  A build with extra flags is a library of its own, never the one
+    :func:`library` loads.  Returns (path, compiler output)."""
     def make(tmp):
         nvcc = _nvcc()
         sources = sorted(CSRC.glob("*.cu"))
@@ -167,7 +172,7 @@ def build(extra_flags: tuple[str, ...] = ()) -> tuple[Path, str]:
         log += _run([[nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(lib),
                       *map(str, objs)]])
         return lib, log
-    return _build_into(library_path(), make)
+    return _build_into(library_path(extra_flags), make)
 
 
 def build_host() -> tuple[Path, str]:

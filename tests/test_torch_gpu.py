@@ -76,17 +76,51 @@ def test_cumsum_kernel_total_near_int32_max(cuda):
     assert torch.equal(got, scans.cumsum_i8_plain(v))
 
 
-@pytest.mark.parametrize("tile_elems", [1024, 4096, 131_072])
-@pytest.mark.parametrize("n", [1, 1023, 1025, 70_001, 1_000_003])
-def test_cumsum_2phase_kernel_matches_plain(cuda, n, tile_elems):
+@pytest.mark.parametrize("n", [1, 1023, 1025, 16_383, 16_384, 16_385,
+                               3 * 16_384 + 5, 70_001, 200_001, 1_000_003])
+def test_cumsum_2phase_kernel_matches_plain(cuda, n):
+    """B4 (units of 16,384 elements) on a signed int8 lane and a bool
+    lane, against its plain version and B3's."""
     rng = np.random.default_rng(n)
     v = torch.from_numpy(rng.integers(-128, 128, n).astype(np.int8)).to(cuda)
-    want = scans.cumsum_i8_2phase_plain(v, tile_elems=tile_elems)
-    assert torch.equal(scans.cumsum_i8_2phase(v, tile_elems=tile_elems), want)
+    want = scans.cumsum_i8_2phase_plain(v)
+    assert torch.equal(scans.cumsum_i8_2phase(v), want)
     assert torch.equal(want, scans.cumsum_i8_plain(v))
     b = v > 0
-    assert torch.equal(scans.cumsum_i8_2phase(b, tile_elems=tile_elems),
-                       scans.cumsum_i8_plain(b))
+    got = scans.cumsum_i8_2phase(b)
+    assert torch.equal(got, scans.cumsum_i8_2phase_plain(b))
+    assert torch.equal(got, scans.cumsum_i8_plain(b))
+
+
+@pytest.mark.parametrize("n", [16_385, 1_000_003])
+def test_cumsum_2phase_kernel_reads_an_unaligned_lane(cuda, n):
+    """A view one byte off 16-byte alignment."""
+    rng = np.random.default_rng(n)
+    w = torch.from_numpy(rng.integers(-128, 128, n + 1).astype(np.int8)).to(cuda)
+    assert w[1:].data_ptr() % 16 == 1
+    assert torch.equal(scans.cumsum_i8_2phase(w[1:]),
+                       scans.cumsum_i8_2phase_plain(w[1:]))
+
+
+def test_cumsum_2phase_kernel_back_to_back(cuda):
+    """50 calls of different lengths on one stream with no sync between
+    them: each call's memset resets the ticket, so each call's last
+    reduce block is its own."""
+    rng = np.random.default_rng(51)
+    lanes = [torch.from_numpy(rng.integers(-128, 128, int(n)).astype(np.int8)).to(cuda)
+             for n in rng.integers(1, 300_000, 50)]
+    torch.cuda.synchronize()
+    got = [scans.cumsum_i8_2phase(v) for v in lanes]
+    for v, g in zip(lanes, got):
+        assert torch.equal(g, scans.cumsum_i8_2phase_plain(v))
+
+
+def test_cumsum_2phase_kernel_total_near_int32_max(cuda):
+    n = (2**31 - 1) // 127
+    v = torch.full((n,), 127, dtype=torch.int8, device=cuda)
+    got = scans.cumsum_i8_2phase(v)
+    assert int(got[-1]) == 127 * n > 2**31 - 128
+    assert torch.equal(got, scans.cumsum_i8_2phase_plain(v))
 
 
 def _inverse(src):

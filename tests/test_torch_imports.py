@@ -1,9 +1,11 @@
 """The port stands alone: no module of epidemicsimulator_tpu_torch, nor
 chip_smoke.py, nor the port's tools, nor the card-only tests, imports JAX
 or the JAX package, and the CUDA and host sources are built without
-PyTorch's C++ extension machinery."""
+PyTorch's C++ extension machinery, into a library named by the hash of
+its sources and of every flag the build passes."""
 
 import ast
+import hashlib
 from pathlib import Path
 
 import pytest
@@ -43,3 +45,27 @@ def test_kernels_use_plain_nvcc_build():
         assert "torch/extension.h" not in src.read_text()
     for path in PACKAGE.rglob("*.py"):
         assert "cpp_extension" not in path.read_text(), path
+
+
+def test_build_flags_name_their_own_library(monkeypatch):
+    """A build with extra flags (``-lineinfo``, ``-Xptxas -v`` once more,
+    or a ``-D`` that changes the code) goes to a file of its own and never
+    answers for the default build, or the reverse; the default file is
+    named as it always was, by the hash of NVCC_FLAGS and the sources.  No
+    nvcc is needed: the path is fixed before anything is built."""
+    from epidemicsimulator_tpu_torch import runtime
+
+    h = hashlib.sha256(" ".join(runtime.NVCC_FLAGS).encode())
+    for src in sorted(runtime.CSRC.glob("*.cu")) + sorted(runtime.CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    default = runtime.BUILD_DIR / f"libesim_kernels_{h.hexdigest()[:16]}.so"
+    assert runtime.library_path() == default
+    extras = [("-Xptxas", "-v"), ("-lineinfo",), ("-DUNIT=1",)]
+    paths = [runtime.library_path(x) for x in extras]
+    assert len({default, *paths}) == 1 + len(extras)
+    assert all(p.parent == default.parent for p in paths)
+    # build() puts each library where library_path() says
+    monkeypatch.setattr(runtime, "_build_into", lambda path, make: (path, ""))
+    assert runtime.build()[0] == default
+    assert [runtime.build(x)[0] for x in extras] == paths

@@ -51,41 +51,50 @@ def test_b3_cumsum_and_range_totals_match_pallas(n):
         t_scans.range_totals(T(v), T(lo), T(hi)).numpy(), np.asarray(want_r))
 
 
-@pytest.mark.parametrize("n", [1, 1000, 5000, 70_001])
+UNIT = t_scans.CUMSUM_UNIT
+
+
+def _b4_lanes(rng, n):
+    """A 0/1 lane, its bool form and a signed int8 lane."""
+    v01 = (rng.random(n) < 0.4).astype(np.int8)
+    return v01, v01.astype(bool), rng.integers(-128, 128, n).astype(np.int8)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 5000, 70_001, UNIT - 1, UNIT,
+                               3 * UNIT + 5, 200_001])
 def test_b4_two_phase_cumsum_matches_pallas(n):
-    """Tiles of 8 x 128 elements, a 0/1 lane, its bool form and a signed
-    int8 lane, bitwise against the JAX two-phase cumsum and B3."""
-    rng = np.random.default_rng(n)
-    for v in ((rng.random(n) < 0.4).astype(np.int8),
-              rng.integers(-128, 128, n).astype(np.int8)):
+    """The port's B4 (units of CUMSUM_UNIT elements) bitwise against the
+    JAX two-phase cumsum at tiles of 8 x 128 elements, and against B3."""
+    for v in _b4_lanes(np.random.default_rng(n), n):
         want = np.asarray(j_scans._cumsum_pallas2(
             jnp.asarray(v), tile_rows=8, interpret=True))
         np.testing.assert_array_equal(want, np.cumsum(v, dtype=np.int32))
-        got = t_scans.cumsum_i8_2phase(T(v), tile_elems=8 * 128)
-        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(t_scans.cumsum_i8_2phase(T(v)).numpy(), want)
         np.testing.assert_array_equal(t_scans.cumsum_i8(T(v)).numpy(), want)
-    b = (rng.random(n) < 0.5)
-    np.testing.assert_array_equal(
-        t_scans.cumsum_i8_2phase(T(b), tile_elems=1024).numpy(),
-        np.cumsum(b, dtype=np.int32))
 
 
 @pytest.mark.parametrize("tile_elems", [2048, 4096, 131_072])
 def test_b4_matches_b3_at_other_tiles(tile_elems):
-    for n in (1, tile_elems - 1, tile_elems, 3 * tile_elems + 5, 200_001):
-        v = T(np.random.default_rng(n).integers(-128, 128, n).astype(np.int8))
-        assert torch.equal(t_scans.cumsum_i8_2phase(v, tile_elems=tile_elems),
-                           t_scans.cumsum_i8(v))
+    """The JAX two-phase cumsum at other tiles (tile_rows = tile_elems /
+    128): the port's result, whose unit is its own, is the same."""
+    for n in (1, UNIT - 1, UNIT, 3 * UNIT + 5, 200_001):
+        for v in _b4_lanes(np.random.default_rng(n), n)[1:]:
+            # the bool lane goes to JAX as int8, which shares its compile
+            want = np.asarray(j_scans._cumsum_pallas2(
+                jnp.asarray(v.astype(np.int8)), tile_rows=tile_elems // 128,
+                interpret=True))
+            got = t_scans.cumsum_i8_2phase(T(v))
+            np.testing.assert_array_equal(got.numpy(), want)
+            assert torch.equal(got, t_scans.cumsum_i8(T(v)))
 
 
 def test_b4_refuses_bad_input():
     v = torch.zeros(5000, dtype=torch.int8)
-    for tile in (0, 1000, 1536):
+    for bad in (v.int(), v.view(50, 100)):
         with pytest.raises(ValueError):
-            t_scans.cumsum_i8_2phase(v, tile_elems=tile)
-    with pytest.raises(ValueError):
-        t_scans.cumsum_i8_2phase(v.int(), tile_elems=1024)
-    assert t_scans.cumsum_i8_2phase(v[:0], tile_elems=1024).shape == (0,)
+            t_scans.cumsum_i8_2phase(bad)
+    assert t_scans.cumsum_i8_2phase(v[:0]).shape == (0,)
+    assert t_scans.cumsum_i8_2phase(v[:0]).dtype == torch.int32
 
 
 @pytest.mark.parametrize("n", [96, 4096, 70_000])

@@ -147,6 +147,8 @@ def test_deterministic_trajectory_bitwise(transport, faithful):
                  id="covid-60-u8_truncation_off"),
     pytest.param("covid_v16", 200, {"reference_u8_truncation": False},
                  id="covid_v16-200-u8_truncation_off"),
+    pytest.param("covid", 60, {"record_exposures_per_oa": False},
+                 id="covid-60-per_oa_off"),
 ])
 def test_series_bitwise(params, infected, flags):
     """20k citizens for 48 steps.  covid(), 60 infected: masks on,
@@ -158,7 +160,8 @@ def test_series_bitwise(params, infected, flags):
     required there; with covid() and 60 infected this changes the series)
     or the u8 truncation of infected counts (no count reaches 256 in
     these worlds, so the series stay those of the default, and the case
-    holds the flag's path to the JAX package's)."""
+    holds the flag's path to the JAX package's), or the per-OA series
+    (both then record an empty one, and the rest must not change)."""
     jw, tw = _worlds(20_000, 12, 1)
     st = j_init(jw, seed=7, starting_infected=infected)
     out, n_bus = _compare_run(jw, tw, getattr(JParams, params)(), st, 48,
