@@ -37,11 +37,23 @@ Phases, each printing its elapsed seconds:
    timed beside them; then B5 against its plain replay on that table and
    on random control bytes;
 6. the port on the card against the port's plain path on the CPU, on a
-   small world in the deterministic regime, bitwise.
+   small world in the deterministic regime, bitwise;
+7. the Simulator and CLI: the port's CLI, in-process, runs the
+   census-like York world (197,603 citizens, seed 0) under
+   ``Params.covid_v16()`` (written by ``Params.to_json``) to the end of
+   its epidemic, chunk 250, with each kernel's launches in that run; the
+   four artifacts and ``cli_phases.json`` are checked, and the run's
+   peak, peak hour, attack, max V, end hour and ms/step are printed
+   beside the JAX package's 32-seed ranges
+   (``sample_results/york_v16/summary.json``, where the checkout has it);
+   then a Simulator on the CLI's cached world checkpoints after 250 steps
+   and a second one resumes from the file, and their SEIRV must equal
+   rows 1-250 and 251-500 of the CLI run, bitwise.
 
 Each kernel's record names the path it runs on; its ``launches`` are
 the count from that path's run, ``main_path_launches`` the count from
-the main path's (0 for B4 and B5).  The last two lines are the card's
+the main path's (0 for B4 and B5), ``york_launches`` the count from
+phase 7's CLI run.  The last two lines are the card's
 name and power limit and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and so
 does a machine with no CUDA device.  Imports nothing of JAX.
 """
@@ -60,6 +72,8 @@ sys.path.insert(0, ROOT)
 N_CITIZENS = 3_457_142
 N_OAS = 15_669
 CHUNK = 250
+YORK_N = 197_603
+SEIRV_KEYS = ("susceptible", "exposed", "infected", "recovered", "vaccinated")
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_INT32_OPS_PER_S = 33.5e12  # non-tensor INT32, H100 SXM data sheet
 T0 = time.perf_counter()
@@ -443,6 +457,108 @@ def small_reference(et):
         f"final SEIRV {final}")
 
 
+def simulator_path(et, card):
+    """Phase 7: the York world through the port's CLI to the end of its
+    epidemic, then checkpoint and resume against that run.  Returns the
+    launch counts of the CLI run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from epidemicsimulator_tpu_torch import cli, runtime
+
+    t_phase = time.perf_counter()
+    params = et.Params.covid_v16()
+    with tempfile.TemporaryDirectory() as tmp:
+        params_file = os.path.join(tmp, "covid_v16.json")
+        params.to_json(params_file)
+        out = os.path.join(tmp, "york")
+        torch.cuda.synchronize()
+        et.reset_launches()
+        rc = cli.main([
+            "york", "--census-like", "--synthetic", str(YORK_N), "--simulate",
+            "--params-file", params_file, "--seed", "0", "--max-steps", "5000",
+            "--chunk-size", str(CHUNK), "--directory", tmp, "--output-name", out])
+        counts = dict(et.launches)
+        if rc != 0:
+            raise AssertionError(f"the CLI returned {rc}")
+        def read(name):
+            with open(os.path.join(out, name)) as f:
+                return json.load(f)
+
+        stats, exposures, timings, memory, phases = (read(name) for name in (
+            "global_stats.json", "exposures.json", "timings.json",
+            "memory.json", "cli_phases.json"))
+        steps = len(stats) - 1
+        seirv = np.array([[row[k] for k in SEIRV_KEYS] for row in stats[:-1]])
+        if any(stats[-1][k] for k in SEIRV_KEYS) or stats[-1]["time_step"] != steps + 1:
+            raise AssertionError("global_stats.json lacks its trailing zero row")
+        if not (seirv.sum(1) == YORK_N).all():
+            raise AssertionError("a global_stats.json row does not sum to N")
+        if not (2 * CHUNK < steps < 5000) or seirv[-1, :3].sum() != 0:
+            raise AssertionError(f"the epidemic did not end inside the run "
+                                 f"({steps} steps, last row {seirv[-1]})")
+        if not (len(exposures["All"]["All"]) == steps
+                and all(len(v) == steps for v in exposures["OutputArea"].values())
+                and len(timings) == steps and len(memory) == steps):
+            raise AssertionError("an artifact does not have one entry per step")
+        inf = seirv[:, 2]
+        vax = np.flatnonzero(seirv[:, 4] > 0)
+        trigger = int(vax[0]) + 1 if len(vax) else None
+        york = dict(peak=int(inf.max()), peak_h=int(inf.argmax()),
+                    attack=int(seirv[-1, 1:4].sum()), max_V=int(seirv[:, 4].max()),
+                    end_h=steps)
+        say(f"York CLI run on {card}: {steps} steps, SEIRV at the end "
+            f"{seirv[-1].tolist()}; cli_phases {phases}")
+        jax_path = os.path.join(ROOT, "sample_results", "york_v16", "summary.json")
+        jax = {}
+        if os.path.exists(jax_path):
+            with open(jax_path) as f:
+                jax = json.load(f)
+        for key, rng_key in (("peak", "peak_range"), ("peak_h", "peak_h_range"),
+                             ("attack", "attack_range"), ("max_V", "max_V_range"),
+                             ("end_h", "end_h_range")):
+            say(f"  {key} {york[key]}; the JAX package's 32 seeds "
+                f"{jax.get(rng_key, 'not in this checkout')}")
+        per_chunk = [timings[i]["Step"] * 1e3 for i in range(0, steps, CHUNK)]
+        regime = lambda i: ("before" if trigger is None or (i + 1) * CHUNK < trigger
+                            else "after" if i * CHUNK + 1 >= trigger else "across")
+        say(f"  ms/step by chunk of {CHUNK} (vaccination starts at hour "
+            f"{trigger}): " + "; ".join(
+                f"{i * CHUNK + 1}-{min((i + 1) * CHUNK, steps)} {ms:.3f} "
+                f"({regime(i)}{', with set-up' if i == 0 else ''})"
+                for i, ms in enumerate(per_chunk)))
+        # B1 launches once per step run (the last chunk runs to its end)
+        say(f"  launches in the York run: {counts}; B2 "
+            f"{counts['run_totals_fused'] * 500 / counts['citizen_phase']:.1f} "
+            f"per 500 steps run")
+        if not all(counts[name] for name in runtime.MAIN_PATH_KERNELS):
+            raise AssertionError("a kernel of the main path was never launched "
+                                 "in the York run")
+        if any(v for name, v in counts.items()
+               if name not in runtime.MAIN_PATH_KERNELS):
+            raise AssertionError("a kernel off the main path ran in the York run")
+
+        world = et.World.load_npz(os.path.join(tmp, "world_york_censuslike.npz"))
+        ckpt = os.path.join(tmp, "ckpt.npz")
+        cfg = et.SimConfig(max_steps=CHUNK, chunk_size=CHUNK)
+        sim = lambda: et.Simulator(world, params, cfg, seed=0, verbose=False,
+                                   checkpoint_path=ckpt, checkpoint_every_chunks=1)
+        first = sim().simulate()
+        resumed = sim()
+        if resumed.state.hour != CHUNK:
+            raise AssertionError(f"resumed at hour {resumed.state.hour}")
+        second = resumed.simulate()
+        if not (np.array_equal(first, seirv[:CHUNK])
+                and np.array_equal(second, seirv[CHUNK:2 * CHUNK])):
+            raise AssertionError("checkpoint and resume differ from the CLI run")
+        say(f"checkpoint after step {CHUNK} and resume: SEIRV rows 1-{CHUNK} and "
+            f"{CHUNK + 1}-{2 * CHUNK} equal the CLI run's, bitwise")
+    say(f"phase 7 took {time.perf_counter() - t_phase:.2f}s")
+    return counts
+
+
 def main():
     import torch
 
@@ -486,6 +602,9 @@ def main():
         rec["main_path_launches"] = counts[rec["name"]]
     torch.cuda.synchronize()
     small_reference(et)
+    york_counts = simulator_path(et, smi)
+    for rec in records:
+        rec["york_launches"] = york_counts[rec["name"]]
 
     print(json.dumps({"kernels": records}))
     print(smi)

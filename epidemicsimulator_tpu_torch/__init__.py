@@ -2,22 +2,27 @@
 
 The main path: a synthetic world (``generate_synthetic_world``), moved to
 the card (``World.to``), an initial state (``init_state``) and chunks of
-fused steps (``make_chunk_runner`` / ``run``).  Entry points run on the
-card unless the caller passes ``device="cpu"``, where each CUDA kernel is
-replaced by its plain torch version.
+fused steps (``make_chunk_runner`` / ``run``).  ``Simulator`` runs that
+path to the end of the epidemic and writes the reference's four JSON
+artifacts; ``python -m epidemicsimulator_tpu_torch.cli`` drives it.
+Entry points run on the card unless the caller passes ``device="cpu"``,
+where each CUDA kernel is replaced by its plain torch version.
 """
 
 from .config import DiseaseParams, InterventionThresholds, Params, SimConfig
 from .engine.scan import make_chunk_runner, run
+from .engine.simulator import Simulator
 from .engine.state import SimState, init_state
 from .engine.step import StepOutput, step
 from .runtime import launches, reset_launches, resolve_device
+from .world.census_like import generate_census_like_world
 from .world.schema import World, make_world
 from .world.synthetic import generate_synthetic_world
 
 __all__ = [
     "DiseaseParams", "InterventionThresholds", "Params", "SimConfig",
-    "SimState", "StepOutput", "World", "generate_synthetic_world",
+    "SimState", "Simulator", "StepOutput", "World",
+    "generate_census_like_world", "generate_synthetic_world",
     "init_state", "launches", "make_chunk_runner", "make_world",
     "reset_launches", "resolve_device", "run", "step",
 ]

@@ -96,10 +96,38 @@ class Params:
             ),
         )
 
+    @staticmethod
+    def from_json(path: str) -> "Params":
+        """Parameters from a JSON file of the layout ``to_json`` writes,
+        ``{"disease": {...}, "thresholds": {...}}``; missing fields keep
+        their defaults."""
+        import json
+
+        with open(path) as f:
+            raw = json.load(f)
+        return Params(
+            disease=DiseaseParams(**raw.get("disease", {})),
+            thresholds=InterventionThresholds(**raw.get("thresholds", {})),
+        )
+
+    def to_json(self, path: str) -> None:
+        import json
+
+        with open(path, "w") as f:
+            json.dump(
+                {
+                    "disease": dataclasses.asdict(self.disease),
+                    "thresholds": dataclasses.asdict(self.thresholds),
+                },
+                f,
+                indent=2,
+            )
+
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """The structural knobs that the fused fast step reads."""
+    """The structural knobs that the fused fast step and the Simulator
+    read."""
 
     max_steps: int = 5000
     chunk_size: int = 250
@@ -112,3 +140,5 @@ class SimConfig:
     #: the reference's vaccine-pool quirks (simulator.rs:346-348, 524-553)
     faithful_vaccine_bugs: bool = True
     bus_capacity: int = BUS_CAPACITY
+    #: infections seeded by the Simulator's initial state
+    starting_infected: int = STARTING_INFECTED_COUNT

@@ -1,0 +1,77 @@
+"""Simulation checkpoint and resume: the whole state is a handful of arrays.
+
+The JAX package's npz layout (its ``engine/checkpoint.py``), key for key,
+so that a checkpoint written by either package resumes in the other:
+
+* the per-citizen lanes ``status``, ``timer`` and ``eligible``, and the
+  five schedule bool lanes unpacked from ``sched``;
+* the scalars ``hour``, ``lockdown``, ``vaccination_started`` and
+  ``mask_status``;
+* ``rng_key_data``, the threefry key as uint32[2];
+* the JAX package's lanes that the port does not carry, as (0,)-shaped
+  sentinels: the replicated-order twins, the fixed-priority vaccination
+  pool and the packed ``sched``;
+* optionally ``__seirv__``, the recorder's rows so far.
+
+The file is written beside its destination and renamed into place.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ..bridge import state_from_arrays
+from .state import SCHED_LANES, SimState, unpack_sched
+
+#: lanes of the JAX package's state that the port does not carry, with
+#: the dtypes its checkpoints give them.  Its default formulation never
+#: reads the replicated-order twins (they keep the copy made at its
+#: ``init_state``), so they are dropped on load whatever their shape.
+_JAX_ONLY = {
+    "status_ws": np.int8, "timer_ws": np.int16, "status_r": np.int8,
+    "timer_r": np.int16, "on_bus_r": np.bool_, "vax_pool": np.int32,
+}
+
+
+def save_state(path: str, state: SimState, seirv_so_far=None) -> None:
+    host = lambda x: x.cpu().numpy()
+    arrays = {
+        "status": host(state.status),
+        "timer": host(state.timer),
+        **{name: host(lane) for name, lane in unpack_sched(state.sched).items()},
+        "eligible": host(state.eligible),
+        "hour": np.asarray(state.hour, np.int32),
+        "lockdown": np.asarray(state.lockdown, np.bool_),
+        "vaccination_started": np.asarray(state.vaccination_started, np.bool_),
+        "mask_status": np.asarray(state.mask_status, np.int8),
+        "rng_key_data": np.asarray(state.rng_key, np.uint32),
+        **{name: np.zeros(0, dtype) for name, dtype in _JAX_ONLY.items()},
+        "vax_pool_size": np.asarray(0, np.int32),
+        "sched": np.zeros(0, np.int8),
+    }
+    if seirv_so_far is not None:
+        arrays["__seirv__"] = np.asarray(seirv_so_far)
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def load_state(path: str, device="cuda") -> tuple[SimState, np.ndarray | None]:
+    """``(state on device, the recorder's rows or None)``.  Raises
+    NotImplementedError for a state that carries the JAX package's
+    fixed-priority vaccination pool, a formulation the port does not
+    have (ROADMAP.md Queue 1 item 6)."""
+    with np.load(path) as data:
+        arrays = {name: data[name] for name in data.files}
+    if np.size(arrays.get("vax_pool", ())):
+        raise NotImplementedError(
+            f"{path} holds a fixed-priority vaccination pool, which the "
+            "port does not have yet (ROADMAP.md Queue 1 item 6)")
+    seirv = arrays.pop("__seirv__", None)
+    arrays["rng_key"] = arrays.pop("rng_key_data")
+    missing = [name for name in SCHED_LANES if name not in arrays]
+    if missing and not np.size(arrays.get("sched", ())):
+        raise ValueError(f"{path} lacks the schedule lanes {missing}")
+    return state_from_arrays(arrays, device=device), seirv

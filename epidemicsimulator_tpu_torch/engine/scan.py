@@ -10,6 +10,8 @@ the epidemic ended, keeping the step that reported it.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -46,22 +48,44 @@ def make_chunk_runner(world, cfg):
     return chunk
 
 
-def run(world, params, cfg, state):
+def run(world, params, cfg, state, *, callback=None, timing=None):
     """Run until the epidemic ends or ``cfg.max_steps`` steps have run.
 
     Returns ``(final_state, outputs)``: outputs is a StepOutput of stacked
     numpy arrays, cut after the first step at which no citizen was
-    exposed, infected or susceptible.  The final state is the state after
-    the last chunk run.
+    exposed, infected or susceptible.
+
+    ``callback(steps_done, out, state)``, if given, is called after each
+    chunk with the number of steps run so far in this call, that chunk's
+    outputs as numpy arrays and the state after it.  ``timing``, if
+    given, accumulates wall-clock seconds by category: ``dispatch`` (the
+    chunk's steps), ``sync`` (its outputs' copy to the host) and
+    ``callback``.
+
+    The loop is synchronous: no chunk runs before the previous one has
+    been read and handed to the callback, so the final state is the state
+    after the chunk in which the epidemic ended (or the last chunk), the
+    state the JAX package's ``run(..., overlap=False)`` returns.
     """
+    tm = timing if timing is not None else {}
+    for name in ("dispatch", "sync", "callback"):
+        tm.setdefault(name, 0.0)
     chunk = make_chunk_runner(world, cfg)
     chunks = []
     steps = 0
     while steps < cfg.max_steps:
+        t0 = time.perf_counter()
         state, out = chunk(params, state)
+        t1 = time.perf_counter()
         out = StepOutput(*(x.cpu().numpy() for x in out))
+        t2 = time.perf_counter()
+        tm["dispatch"] += t1 - t0
+        tm["sync"] += t2 - t1
         chunks.append(out)
         steps += out.seirv.shape[0]
+        if callback is not None:
+            callback(steps, out, state)
+            tm["callback"] += time.perf_counter() - t2
         if out.seirv[-1, :3].sum() == 0:
             break
     outputs = StepOutput(*(

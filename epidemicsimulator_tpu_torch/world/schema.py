@@ -108,6 +108,36 @@ class World:
             for name in self.lane_names()
         })
 
+    # The world cache: the JAX package's npz layout, key for key (the
+    # statics in ``__meta__``), so a world saved by either package loads
+    # in the other.
+    def save_npz(self, path: str) -> None:
+        """Every lane, from the host or a device, to a compressed npz."""
+        host = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        np.savez_compressed(
+            path,
+            __meta__=np.array(
+                [self.n_buildings, self.n_rooms, self.n_output_areas,
+                 self.max_household_size],
+                np.int64,
+            ),
+            **{name: host(getattr(self, name)) for name in self.lane_names()},
+        )
+
+    @staticmethod
+    def load_npz(path: str) -> "World":
+        """A world with numpy lanes (move it with :meth:`to`)."""
+        with np.load(path) as data:
+            meta = data["__meta__"]
+            kwargs = {k: data[k] for k in data.files if k != "__meta__"}
+        return World(
+            n_buildings=int(meta[0]),
+            n_rooms=int(meta[1]),
+            n_output_areas=int(meta[2]),
+            max_household_size=int(meta[3]) if len(meta) > 3 else 0,
+            **kwargs,
+        )
+
     def validate(self) -> None:
         n = self.n_citizens
         for name in self.CORE_LANES:

@@ -386,3 +386,39 @@ def test_main_path_on_card_matches_cpu(cuda):
                      out.exposures_per_oa.cpu()])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("regime", ["covid_v16", "deterministic"])
+def test_simulator_on_card_matches_cpu(cuda, tmp_path, regime):
+    """The Simulator runs of tests/test_torch_simulator.py, census-like
+    world of 5,000 citizens, 4 chunks of 24 steps: on the card through the
+    kernels, and on the CPU through the plain versions; SEIRV and
+    global_stats.json and exposures.json bitwise equal.  covid_v16() runs
+    all 96 steps; the deterministic regime (exposure chance 1, masks off)
+    ends at step 92."""
+    if regime == "covid_v16":
+        params = et.Params.covid_v16()
+    else:
+        base = et.Params.covid()
+        params = et.Params(
+            dataclasses.replace(base.disease, exposure_chance=1.0,
+                                exposed_time=4, infected_time=8,
+                                vaccination_rate=400),
+            dataclasses.replace(base.thresholds, lockdown=0.1, vaccination=0.02,
+                                mask_public_transport=2.0, mask_everywhere=2.0),
+        )
+    world = et.generate_census_like_world(5000, 16, seed=42)
+    cfg = et.SimConfig(max_steps=96, chunk_size=24)
+    seirv = {}
+    for device in ("cuda", "cpu"):
+        et.reset_launches()
+        seirv[device] = et.Simulator(world, params, cfg, seed=1, device=device,
+                                     verbose=False).simulate(str(tmp_path / device))
+        if device == "cuda":
+            assert all(et.launches[name] for name in runtime.MAIN_PATH_KERNELS), \
+                et.launches
+    np.testing.assert_array_equal(seirv["cuda"], seirv["cpu"])
+    assert len(seirv["cpu"]) == (96 if regime == "covid_v16" else 92)
+    for name in ("global_stats.json", "exposures.json"):
+        assert (tmp_path / "cuda" / name).read_bytes() == \
+            (tmp_path / "cpu" / name).read_bytes(), name

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where a step of the PyTorch port spends its time on the card.
 
-    python3 tools/profile_torch_step.py [--steps 500] [--profile-from 250]
-                                        [--table FILE]
+    python3 tools/profile_torch_step.py [--world yh|york] [--steps 500]
+                                        [--profile-from 250] [--table FILE]
 
-Runs the main path (the 3,457,142-citizen synthetic world, seed 0, 20,000
-infected, Params.covid()) step by step on one CUDA card, timing each step
-on the host clock around a synchronize, and traces steps
-``--profile-from``.. with torch.profiler.  Prints per-regime step times,
+Runs a cell step by step on one CUDA card, timing each step on the host
+clock around a synchronize, and traces steps ``--profile-from``.. with
+torch.profiler.  ``yh``: the main path (the 3,457,142-citizen synthetic
+world, seed 0, 20,000 infected, Params.covid()); ``york``: the York v1.6
+run (the census-like world of 197,603 citizens, 637 OAs, seed 42, 10
+infected, sim seed 0, Params.covid_v16()).  Prints per-regime step times,
 the device's busy and idle share over the traced window and the device
 time by kernel: the top 20, then every kernel of ``csrc/`` and the
 memsets.  ``--table`` writes the profiler's full table to FILE.
@@ -28,8 +30,20 @@ PORT_KERNELS = ("citizen_tile", "runs_reduce", "runs_apply",
                 "cumsum_lookback", "Memset")
 
 
+def make_cell(et, name):
+    """``(world on the card, initial state, params)`` of a cell."""
+    if name == "yh":
+        world = et.generate_synthetic_world(3_457_142, n_output_areas=15_669,
+                                            seed=0).to("cuda")
+        return world, et.init_state(world, seed=0, starting_infected=20_000), \
+            et.Params.covid()
+    world = et.generate_census_like_world(197_603, 637, seed=42).to("cuda")
+    return world, et.init_state(world, seed=0), et.Params.covid_v16()
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--world", choices=("yh", "york"), default="yh")
     ap.add_argument("--steps", type=int, default=500)
     ap.add_argument("--profile-from", type=int, default=250)
     ap.add_argument("--table")
@@ -46,12 +60,10 @@ def main():
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    world = et.generate_synthetic_world(3_457_142, n_output_areas=15_669,
-                                        seed=0).to("cuda")
-    state = et.init_state(world, seed=0, starting_infected=20_000)
-    params, cfg = et.Params.covid(), et.SimConfig()
+    world, state, params = make_cell(et, args.world)
+    cfg = et.SimConfig()
     tables = make_step_tables(world)
-    times = {"lockdown": [], "moving, work hour": [], "moving, other hour": []}
+    times = {}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     traced_wall = 0.0
     for i in range(args.steps):
@@ -59,7 +71,7 @@ def main():
             prof.start()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        lockdown, hour = state.lockdown, state.hour + 1
+        lockdown, hour, vax = state.lockdown, state.hour + 1, state.vaccination_started
         state, _ = et.step(world, params, cfg, state, tables=tables)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
@@ -69,14 +81,16 @@ def main():
             regime = ("lockdown" if lockdown else
                       "moving, work hour" if 9 <= hour % 24 <= 17
                       else "moving, other hour")
-            times[regime].append(dt * 1e3)
+            if not vax:
+                regime += ", before vaccination"
+            times.setdefault(regime, []).append(dt * 1e3)
     prof.stop()
 
     card = runtime.card()
-    print(f"card {card}; steps before the trace, host ms/step (median, count):")
+    print(f"card {card}; cell {args.world}; steps before the trace, host "
+          f"ms/step (median, count):")
     for k, v in times.items():
-        if v:
-            print(f"  {k}: {statistics.median(v):.3f} ms ({len(v)} steps)")
+        print(f"  {k}: {statistics.median(v):.3f} ms ({len(v)} steps)")
     # kernels only: an aten op's own row repeats its kernels' device time
     rows = []
     for evt in prof.key_averages():
