@@ -48,12 +48,23 @@ Phases, each printing its elapsed seconds:
    (``sample_results/york_v16/summary.json``, where the checkout has it);
    then a Simulator on the CLI's cached world checkpoints after 250 steps
    and a second one resumes from the file, and their SEIRV must equal
-   rows 1-250 and 251-500 of the CLI run, bitwise.
+   rows 1-250 and 251-500 of the CLI run, bitwise;
+8. the census/OSM pipeline: ``tools/run_torch_york_pipeline.py`` writes
+   the York fixture (637 OAs x 310 residents, fixture seed 0, with
+   ``tools/gen_fixture_torch.py``: census CSVs, a PBF extract and an OA
+   shapefile) and, with the launch counts set to 0 just before, runs the
+   port's CLI on it (``--pbf --shapefile --simulate``, ``covid_v16``,
+   sim seed 1, at most 5,000 steps, chunk 250) to the end of its
+   epidemic; the four artifacts are checked as in phase 7, and N, the
+   OAs left after filtering, the builder's eight phase times,
+   ``cli_phases.json``, ms/step by chunk, the launches and the five
+   envelope values beside the JAX package's 32-seed ranges (scaled by
+   N / 197,603) are printed.
 
 Each kernel's record names the path it runs on; its ``launches`` are
 the count from that path's run, ``main_path_launches`` the count from
 the main path's (0 for B4 and B5), ``york_launches`` the count from
-phase 7's CLI run.  The last two lines are the card's
+phase 7's CLI run, ``pipeline_launches`` the count from phase 8's.  The last two lines are the card's
 name and power limit and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and so
 does a machine with no CUDA device.  Imports nothing of JAX.
 """
@@ -457,6 +468,64 @@ def small_reference(et):
         f"final SEIRV {final}")
 
 
+def check_artifacts(out, n):
+    """The four artifacts of a CLI run that ended its epidemic: one entry
+    per step, the trailing zero row, every row summing to ``n``.  Returns
+    (SEIRV rows, timings, cli_phases, the vaccination trigger hour)."""
+    import numpy as np
+
+    def read(name):
+        with open(os.path.join(out, name)) as f:
+            return json.load(f)
+
+    stats, exposures, timings, memory, phases = (read(name) for name in (
+        "global_stats.json", "exposures.json", "timings.json", "memory.json",
+        "cli_phases.json"))
+    steps = len(stats) - 1
+    seirv = np.array([[row[k] for k in SEIRV_KEYS] for row in stats[:-1]])
+    if any(stats[-1][k] for k in SEIRV_KEYS) or stats[-1]["time_step"] != steps + 1:
+        raise AssertionError("global_stats.json lacks its trailing zero row")
+    if not (seirv.sum(1) == n).all():
+        raise AssertionError("a global_stats.json row does not sum to N")
+    if not (2 * CHUNK < steps < 5000) or seirv[-1, :3].sum() != 0:
+        raise AssertionError(f"the epidemic did not end inside the run "
+                             f"({steps} steps, last row {seirv[-1]})")
+    if not (len(exposures["All"]["All"]) == steps
+            and all(len(v) == steps for v in exposures["OutputArea"].values())
+            and len(timings) == steps and len(memory) == steps):
+        raise AssertionError("an artifact does not have one entry per step")
+    vax = np.flatnonzero(seirv[:, 4] > 0)
+    trigger = int(vax[0]) + 1 if len(vax) else None
+    return seirv, timings, phases, trigger
+
+
+def say_chunks(timings, steps, trigger):
+    per_chunk = [timings[i]["Step"] * 1e3 for i in range(0, steps, CHUNK)]
+    regime = lambda i: ("before" if trigger is None or (i + 1) * CHUNK < trigger
+                        else "after" if i * CHUNK + 1 >= trigger else "across")
+    say(f"  ms/step by chunk of {CHUNK} (vaccination starts at hour "
+        f"{trigger}): " + "; ".join(
+            f"{i * CHUNK + 1}-{min((i + 1) * CHUNK, steps)} {ms:.3f} "
+            f"({regime(i)}{', with set-up' if i == 0 else ''})"
+            for i, ms in enumerate(per_chunk)))
+
+
+def check_launches(counts, run):
+    """Every main-path kernel launched in ``run``, and nothing else."""
+    from epidemicsimulator_tpu_torch import runtime
+
+    # B1 launches once per step run (the last chunk runs to its end)
+    say(f"  launches in {run}: {counts}; B2 "
+        f"{counts['run_totals_fused'] * 500 / counts['citizen_phase']:.1f} "
+        f"per 500 steps run")
+    if not all(counts[name] for name in runtime.MAIN_PATH_KERNELS):
+        raise AssertionError(f"a kernel of the main path was never launched "
+                             f"in {run}")
+    if any(v for name, v in counts.items()
+           if name not in runtime.MAIN_PATH_KERNELS):
+        raise AssertionError(f"a kernel off the main path ran in {run}")
+
+
 def simulator_path(et, card):
     """Phase 7: the York world through the port's CLI to the end of its
     epidemic, then checkpoint and resume against that run.  Returns the
@@ -466,7 +535,7 @@ def simulator_path(et, card):
     import numpy as np
     import torch
 
-    from epidemicsimulator_tpu_torch import cli, runtime
+    from epidemicsimulator_tpu_torch import cli
 
     t_phase = time.perf_counter()
     params = et.Params.covid_v16()
@@ -483,29 +552,9 @@ def simulator_path(et, card):
         counts = dict(et.launches)
         if rc != 0:
             raise AssertionError(f"the CLI returned {rc}")
-        def read(name):
-            with open(os.path.join(out, name)) as f:
-                return json.load(f)
-
-        stats, exposures, timings, memory, phases = (read(name) for name in (
-            "global_stats.json", "exposures.json", "timings.json",
-            "memory.json", "cli_phases.json"))
-        steps = len(stats) - 1
-        seirv = np.array([[row[k] for k in SEIRV_KEYS] for row in stats[:-1]])
-        if any(stats[-1][k] for k in SEIRV_KEYS) or stats[-1]["time_step"] != steps + 1:
-            raise AssertionError("global_stats.json lacks its trailing zero row")
-        if not (seirv.sum(1) == YORK_N).all():
-            raise AssertionError("a global_stats.json row does not sum to N")
-        if not (2 * CHUNK < steps < 5000) or seirv[-1, :3].sum() != 0:
-            raise AssertionError(f"the epidemic did not end inside the run "
-                                 f"({steps} steps, last row {seirv[-1]})")
-        if not (len(exposures["All"]["All"]) == steps
-                and all(len(v) == steps for v in exposures["OutputArea"].values())
-                and len(timings) == steps and len(memory) == steps):
-            raise AssertionError("an artifact does not have one entry per step")
+        seirv, timings, phases, trigger = check_artifacts(out, YORK_N)
+        steps = len(seirv)
         inf = seirv[:, 2]
-        vax = np.flatnonzero(seirv[:, 4] > 0)
-        trigger = int(vax[0]) + 1 if len(vax) else None
         york = dict(peak=int(inf.max()), peak_h=int(inf.argmax()),
                     attack=int(seirv[-1, 1:4].sum()), max_V=int(seirv[:, 4].max()),
                     end_h=steps)
@@ -521,24 +570,8 @@ def simulator_path(et, card):
                              ("end_h", "end_h_range")):
             say(f"  {key} {york[key]}; the JAX package's 32 seeds "
                 f"{jax.get(rng_key, 'not in this checkout')}")
-        per_chunk = [timings[i]["Step"] * 1e3 for i in range(0, steps, CHUNK)]
-        regime = lambda i: ("before" if trigger is None or (i + 1) * CHUNK < trigger
-                            else "after" if i * CHUNK + 1 >= trigger else "across")
-        say(f"  ms/step by chunk of {CHUNK} (vaccination starts at hour "
-            f"{trigger}): " + "; ".join(
-                f"{i * CHUNK + 1}-{min((i + 1) * CHUNK, steps)} {ms:.3f} "
-                f"({regime(i)}{', with set-up' if i == 0 else ''})"
-                for i, ms in enumerate(per_chunk)))
-        # B1 launches once per step run (the last chunk runs to its end)
-        say(f"  launches in the York run: {counts}; B2 "
-            f"{counts['run_totals_fused'] * 500 / counts['citizen_phase']:.1f} "
-            f"per 500 steps run")
-        if not all(counts[name] for name in runtime.MAIN_PATH_KERNELS):
-            raise AssertionError("a kernel of the main path was never launched "
-                                 "in the York run")
-        if any(v for name, v in counts.items()
-               if name not in runtime.MAIN_PATH_KERNELS):
-            raise AssertionError("a kernel off the main path ran in the York run")
+        say_chunks(timings, steps, trigger)
+        check_launches(counts, "the York run")
 
         world = et.World.load_npz(os.path.join(tmp, "world_york_censuslike.npz"))
         ckpt = os.path.join(tmp, "ckpt.npz")
@@ -556,6 +589,51 @@ def simulator_path(et, card):
         say(f"checkpoint after step {CHUNK} and resume: SEIRV rows 1-{CHUNK} and "
             f"{CHUNK + 1}-{2 * CHUNK} equal the CLI run's, bitwise")
     say(f"phase 7 took {time.perf_counter() - t_phase:.2f}s")
+    return counts
+
+
+def pipeline_path(et, card):
+    """Phase 8: the York fixture's census CSVs, PBF and shapefile through
+    the port's CLI on the card to the end of the epidemic.  Returns the
+    launch counts of the CLI run."""
+    import tempfile
+
+    tool = load_tool("run_torch_york_pipeline")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture, out = os.path.join(tmp, "fixture"), os.path.join(tmp, "out")
+        # run() sets the launch counts to 0 just before the CLI's run and
+        # reads them just after it
+        summary = tool.run(fixture, out, oas=637, pop=310, steps=5000, seed=1,
+                           chunk_size=CHUNK)
+        counts = summary["launches"]
+        n = summary["n_citizens"]
+        seirv, timings, _, trigger = check_artifacts(
+            os.path.join(fixture, "sim_out"), n)
+        world = et.World.load_npz(os.path.join(fixture, "world_york_pipeline.npz"))
+        if world.n_citizens != n:
+            raise AssertionError("the cached world and the run disagree on N")
+        say(f"York pipeline CLI run on {card}: N = {n:,}, "
+            f"{world.n_output_areas} OAs after filtering (of "
+            f"{summary['n_output_areas']}); {len(seirv)} steps, SEIRV at the "
+            f"end {seirv[-1].tolist()}")
+        say(f"  builder phases (s): {summary['builder_phase_s']}")
+        say(f"  cli_phases {summary['cli_phases']}; fixture "
+            f"{summary['fixture_gen_s']} s, kernel build "
+            f"{summary['kernel_build_s']} s, first launch "
+            f"{summary['first_launch_s']} s")
+        say_chunks(timings, len(seirv), trigger)
+        check_launches(counts, "the York pipeline run")
+        scale = n / YORK_N
+        for key, gate in (summary["envelope_gate"] or {}).items():
+            lo, hi = gate["envelope"]
+            s = 1 if key in ("peak_h", "end_h") else scale
+            say(f"  {key} {gate['value']}; the JAX package's 32 seeds "
+                f"{lo}-{hi}, x {s:.5f} = {lo * s:.0f}-{hi * s:.0f}: "
+                f"{'inside' if gate['inside'] else 'outside'}")
+        if summary["envelope_gate"] is None:
+            say("  the JAX package's 32-seed ranges are not in this checkout")
+    say(f"phase 8 took {time.perf_counter() - t_phase:.2f}s")
     return counts
 
 
@@ -603,8 +681,10 @@ def main():
     torch.cuda.synchronize()
     small_reference(et)
     york_counts = simulator_path(et, smi)
+    pipeline_counts = pipeline_path(et, smi)
     for rec in records:
         rec["york_launches"] = york_counts[rec["name"]]
+        rec["pipeline_launches"] = pipeline_counts[rec["name"]]
 
     print(json.dumps({"kernels": records}))
     print(smi)

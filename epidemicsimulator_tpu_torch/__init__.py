@@ -4,7 +4,9 @@ The main path: a synthetic world (``generate_synthetic_world``), moved to
 the card (``World.to``), an initial state (``init_state``) and chunks of
 fused steps (``make_chunk_runner`` / ``run``).  ``Simulator`` runs that
 path to the end of the epidemic and writes the reference's four JSON
-artifacts; ``python -m epidemicsimulator_tpu_torch.cli`` drives it.
+artifacts; ``python -m epidemicsimulator_tpu_torch.cli`` drives it, on a
+synthetic world or on one that ``world.preprocess.builder.build_world``
+makes from census tables, an OSM extract and OA polygons (``data/``).
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where each CUDA kernel is replaced by its plain torch version.
 """

@@ -1,19 +1,30 @@
 """Command-line driver of the PyTorch port: the `run` crate equivalent
-(run/src/main.rs:68-167), simulate mode.
+(run/src/main.rs:68-167).
 
-  python -m epidemicsimulator_tpu_torch.cli york --synthetic 200000 --simulate
+Modes:
+
+  --download              fetch the four census tables from NOMIS
+  --resume ROW --table T  resume a partial table download
+  --simulate              build/load the world and run the epidemic
+  --synthetic N           use a synthetic world of N citizens (no data files)
+
+  python -m epidemicsimulator_tpu_torch.cli 1946157112 --directory data \\
+      --pbf york.osm.pbf --shapefile york_oas.shp --simulate
   python -m epidemicsimulator_tpu_torch.cli york --census-like \\
       --synthetic 197603 --simulate --params-file v16.json
 
-The port's copy of ``epidemicsimulator_tpu/cli.py`` for the synthetic and
-census-like worlds: it builds (or, with ``--use-cache``, loads) the world,
-runs the Simulator on the card (``--device cpu`` for the plain versions
-on the CPU) and writes the four reference JSON artifacts and
-``cli_phases.json`` into ``--output-name``.  The world cache and its
-geometry sidecar have the JAX package's names and layout.  Not offered
-yet: the census/OSM pipeline with ``--download`` and ``--resume``
-(ROADMAP.md Queue 1 item 3), ``--render`` and ``--visualise*``,
-``--calibrate`` (Queue 1 item 5) and ``--devices`` (Queue 1 item 8).
+The port's copy of ``epidemicsimulator_tpu/cli.py``: it builds the world
+from the census CSVs in ``--directory``, the ``.osm.pbf`` extract and the
+OA shapefile (or a synthetic world; with ``--use-cache`` it loads the
+cached one), runs the Simulator on the card (``--device cpu`` for the
+plain versions on the CPU) and writes the four reference JSON artifacts
+and ``cli_phases.json`` into ``--output-name``.  The world cache, its
+geometry sidecar, the OSM parse cache ``<pbf>.parsed.npz`` and
+``<world cache>.build_timings.json`` have the JAX package's names and
+layout.  The downloads compute nothing on a device and run without a
+card.  Not offered yet: ``--render`` and ``--visualise*`` (ROADMAP.md
+Queue 1), ``--calibrate`` (Queue 1 item 5) and ``--devices`` (Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -35,9 +46,17 @@ def make_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("area", help="NOMIS area code (e.g. 1946157112 for York) or a label")
     p.add_argument("--directory", default="data", help="data directory")
+    p.add_argument("--grid-size", type=int, default=700_000,
+                   help="accepted for reference-CLI parity; unused (geometry is metric)")
     p.add_argument("--use-cache", action="store_true",
                    help="reuse the preprocessed world .npz if present")
+    p.add_argument("--allow-download", action="store_true",
+                   help="accepted for reference-CLI parity; unused")
     p.add_argument("--simulate", action="store_true")
+    p.add_argument("--download", action="store_true")
+    p.add_argument("--resume", type=int, default=None, metavar="ROW")
+    p.add_argument("--table", default=None,
+                   help="with --resume: a CensusTable name (default AGE_STRUCTURE)")
     p.add_argument("--synthetic", type=int, default=None, metavar="N_CITIZENS")
     p.add_argument("--census-like", action="store_true",
                    help="with --synthetic: census-shaped structure (England "
@@ -49,6 +68,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk-size", type=int, default=250)
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="steps between state snapshots (0 = off)")
+    p.add_argument("--pbf", default=None, help="OSM .pbf extract path")
+    p.add_argument("--shapefile", default=None, help="OA boundary shapefile path")
     p.add_argument("--params-file", default=None,
                    help="JSON disease/threshold parameters (default: COVID)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -70,11 +91,14 @@ def _geometry_cache_path(args) -> str:
     )
 
 
-def load_or_build_world(args):
-    """-> World, or None when the world would need the census/OSM
-    pipeline, which is not ported yet.  A built world is cached with its
-    geometry sidecar, which the JAX package's CLI reads."""
-    from .world.geometry import synthetic_geometry
+def load_or_build_world(args, phases=None):
+    """-> World.  A built world is cached with its geometry sidecar, which
+    the JAX package's CLI reads.  Where the census/OSM pipeline builds it
+    and ``phases`` is given, ``phases["world_pipeline"]`` receives the
+    wall seconds of its steps: the census tables, the shapefile, the PBF
+    (or its parse cache), the national grid, the dedupe (with the first
+    import of scipy's KD-tree), ``build_world`` and the cache writes."""
+    from .world.geometry import WorldGeometry, synthetic_geometry
     from .world.schema import World
 
     cache = _world_cache_path(args)
@@ -82,22 +106,114 @@ def load_or_build_world(args):
         logging.info("loading cached world from %s", cache)
         return World.load_npz(cache)
 
-    if not args.synthetic:
-        return None
-    if args.census_like:
-        from .world.census_like import generate_census_like_world as gen
-    else:
-        from .world.synthetic import generate_synthetic_world as gen
+    if args.synthetic:
+        if args.census_like:
+            from .world.census_like import generate_census_like_world as gen
+        else:
+            from .world.synthetic import generate_synthetic_world as gen
 
-    world = gen(
-        args.synthetic, n_output_areas=max(4, args.synthetic // 300),
-        seed=args.seed,
+        world = gen(
+            args.synthetic, n_output_areas=max(4, args.synthetic // 300),
+            seed=args.seed,
+        )
+        if os.path.isdir(args.directory):
+            world.save_npz(cache)
+            synthetic_geometry(world, seed=args.seed).save_npz(
+                _geometry_cache_path(args))
+        return world
+
+    # full pipeline: census CSVs + OSM pbf + OA shapefile
+    import numpy as np
+
+    from .data.census.container import load_census_data
+    from .data.geo.convert import wgs84_to_national_grid
+    from .data.osm.native import parse_pbf
+    from .data.osm.shapefile import read_polygons
+    from .world.preprocess.builder import (
+        OSMBuildings,
+        build_world,
+        dedupe_close_buildings,
     )
-    if os.path.isdir(args.directory):
-        world.save_npz(cache)
-        synthetic_geometry(world, seed=args.seed).save_npz(
-            _geometry_cache_path(args))
+
+    split: dict = {}
+    t = time.perf_counter()
+
+    def lap(step):
+        nonlocal t
+        now = time.perf_counter()
+        split[step] = round(now - t, 3)
+        t = now
+
+    census = load_census_data(args.directory)
+    lap("census_s")
+    shp = args.shapefile or os.path.join(
+        args.directory, "census_map_areas_converted", f"{args.area}.shp"
+    )
+    codes, rings, starts = read_polygons(shp)
+    lap("shapefile_s")
+    pbf = args.pbf or os.path.join(args.directory, f"{args.area}.osm.pbf")
+    # OSM parse cache: the npz analog of the reference's bincode cache
+    # (osm_data/src/lib.rs:395-474), honoured by --use-cache.
+    osm_cache = pbf + ".parsed.npz"
+    if args.use_cache and os.path.exists(osm_cache):
+        with np.load(osm_cache) as z:
+            classes, lats, lons, areas = (
+                z["classes"], z["lats"], z["lons"], z["areas"]
+            )
+    else:
+        classes, lats, lons, areas = parse_pbf(pbf)
+        np.savez_compressed(
+            osm_cache, classes=classes, lats=lats, lons=lons, areas=areas
+        )
+    lap("pbf_s")
+    east, north = wgs84_to_national_grid(lats, lons)
+    lap("national_grid_s")
+    keep = dedupe_close_buildings(classes, east, north)
+    lap("dedupe_s")
+    osm = OSMBuildings(
+        classes=classes[keep], east=east[keep], north=north[keep],
+        areas=areas[keep],
+    )
+    # per-phase wall clock, the reference's per-init-stage Timer prints
+    # (simulator_builder.rs:1168-1290); persisted next to the world cache
+    timings: dict = {}
+    world = build_world(
+        census, osm, rings, starts, codes, seed=args.seed, timings=timings
+    )
+    lap("build_world_s")
+    with open(cache + ".build_timings.json", "w") as f:
+        json.dump(timings, f, indent=1)
+    world.save_npz(cache)
+    WorldGeometry(
+        rings=rings, ring_starts=starts, codes=list(codes),
+        b_east=osm.east, b_north=osm.north, b_classes=osm.classes,
+    ).save_npz(_geometry_cache_path(args))
+    lap("caches_written_s")
+    if phases is not None:
+        phases["world_pipeline"] = split
     return world
+
+
+def download(args) -> int:
+    """``--download`` and ``--resume ROW --table T``."""
+    from .data.census.nomis import (
+        GEOGRAPHY_CODES,
+        download_all_tables,
+        download_table,
+    )
+    from .data.census.tables import CensusTable, TABLE_SPECS
+
+    os.makedirs(args.directory, exist_ok=True)
+    if args.resume is not None:
+        table = CensusTable[args.table] if args.table else CensusTable.AGE_STRUCTURE
+        dest = os.path.join(args.directory, TABLE_SPECS[table].filename)
+        download_table(
+            table, GEOGRAPHY_CODES.get(args.area, args.area), dest,
+            resume_from_row=args.resume,
+        )
+    else:
+        download_all_tables(args.directory, args.area)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -106,18 +222,14 @@ def main(argv=None) -> int:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
     args = make_parser().parse_args(argv)
+    if args.download or args.resume is not None:
+        return download(args)
     resolve_device(args.device)  # no card: raise before building anything
 
     phases: dict = {}  # coarse wall-clock phases -> <output>/cli_phases.json
     t_start = time.perf_counter()
 
-    world = load_or_build_world(args)
-    if world is None:
-        logging.error(
-            "the census/OSM world pipeline is not ported yet (ROADMAP.md "
-            "Queue 1 item 3): pass --synthetic N, or --use-cache with a "
-            "cached world in --directory")
-        return 2
+    world = load_or_build_world(args, phases)
     phases["world_load_or_build_s"] = round(time.perf_counter() - t_start, 2)
 
     if args.simulate:

@@ -9,8 +9,9 @@ sources and of every flag the build passes, so a changed source or an
 extra flag builds anew and a finished build is never reused by
 mistake); ``ctypes`` loads it.  Nothing here includes
 PyTorch's C++ headers: that build takes minutes, this one seconds.  The
-host code in ``csrc/*.cpp`` (the Beneš router) is built the same way
-with the host C++ compiler into a second library.  Each library is
+host code in ``csrc/*.cpp`` (the Beneš router, and the OSM PBF parser and
+polygon assignment, linked with zlib) is built the same way with the host
+C++ compiler into a second library.  Each library is
 written in a temporary directory and renamed into place, so concurrent
 builds and interrupted builds leave no lock or half-written file behind.
 """
@@ -37,6 +38,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+# after the sources on the command line, as the linker needs them
+HOST_LIBS = ("-lz",)
 
 #: launches of each kernel since the last :func:`reset_launches`; each
 #: wrapper adds one where it launches its kernel and nowhere else.
@@ -70,10 +73,21 @@ _SIGNATURES = {
     ),
 }
 
+_F64P = ctypes.POINTER(ctypes.c_double)
 _HOST_SIGNATURES = {
     "es_benes_route": (
         [ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
          ctypes.POINTER(ctypes.c_uint8)], ctypes.c_int),
+    "esucd_parse_pbf": (
+        [ctypes.c_char_p] + [ctypes.c_double] * 4
+        + [ctypes.POINTER(ctypes.POINTER(ctypes.c_int32))]
+        + [ctypes.POINTER(_F64P)] * 3 + [ctypes.POINTER(ctypes.c_int64)],
+        ctypes.c_int),
+    "esucd_assign_points": (
+        [_F64P, _F64P, ctypes.c_int64, _F64P, _F64P,
+         ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+         ctypes.POINTER(ctypes.c_int32)], None),
+    "esucd_free": ([ctypes.c_void_p], None),
 }
 
 _library = None
@@ -114,7 +128,8 @@ def library_path(extra_flags: tuple[str, ...] = ()) -> Path:
 
 
 def host_library_path() -> Path:
-    return _library_path("libesim_host", HOST_FLAGS, sorted(CSRC.glob("*.cpp")))
+    return _library_path("libesim_host", (*HOST_FLAGS, *HOST_LIBS),
+                         sorted(CSRC.glob("*.cpp")))
 
 
 def _nvcc() -> str:
@@ -184,7 +199,7 @@ def build_host() -> tuple[Path, str]:
             raise RuntimeError("no host C++ compiler: set CXX or install g++")
         lib = tmp / "lib.so"
         log = _run([[cxx, *HOST_FLAGS, "-o", str(lib),
-                     *map(str, sorted(CSRC.glob("*.cpp")))]])
+                     *map(str, sorted(CSRC.glob("*.cpp"))), *HOST_LIBS]])
         return lib, log
     return _build_into(host_library_path(), make)
 
@@ -207,7 +222,8 @@ def library():
 
 
 def host_library():
-    """The loaded host library (the Beneš router), built on first use."""
+    """The loaded host library (the Beneš router and the OSM parser),
+    built on first use."""
     global _host_library
     if _host_library is None:
         _host_library = _load(build_host()[0], _HOST_SIGNATURES)

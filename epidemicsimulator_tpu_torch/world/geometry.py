@@ -8,9 +8,8 @@ time and reloaded for cached worlds — which is what lets ``--render`` /
 ``--visualise`` work together with ``--use-cache`` (the reference
 re-derives polygons from the shapefile on every run instead).
 
-A copy of the parts of ``epidemicsimulator_tpu/world/geometry.py`` that
-the CLI's simulate mode writes; a world's lanes may be numpy arrays or
-torch tensors on any device.
+The port's copy of ``epidemicsimulator_tpu/world/geometry.py``; a
+world's lanes may be numpy arrays or torch tensors on any device.
 """
 
 from __future__ import annotations
@@ -34,6 +33,10 @@ class WorldGeometry:
     b_north: np.ndarray      # (B,)
     b_classes: np.ndarray    # (B,) int8 BUILDING_CLASSES index
 
+    @property
+    def n_polygons(self) -> int:
+        return len(self.ring_starts) - 1
+
     def save_npz(self, path: str) -> None:
         np.savez_compressed(
             path,
@@ -56,6 +59,27 @@ class WorldGeometry:
                 b_north=z["b_north"],
                 b_classes=z["b_classes"],
             )
+
+
+def buildings_per_output_area(world) -> np.ndarray:
+    """Distinct buildings assigned to each OA (the reference's
+    ``area.buildings.len()`` measure for the BuildingDensity choropleth,
+    run/src/main.rs:246-261): households count toward their home OA,
+    workplaces/schools toward their work OA."""
+    home_b = _host(world.home_building)
+    home_oa = _host(world.home_oa)
+    work_b = _host(world.work_building)
+    work_oa = _host(world.work_oa)
+    pairs = np.unique(
+        np.concatenate(
+            [
+                np.stack([home_b, home_oa], 1),
+                np.stack([work_b, work_oa], 1),
+            ]
+        ),
+        axis=0,
+    )
+    return np.bincount(pairs[:, 1], minlength=world.n_output_areas)
 
 
 def synthetic_geometry(world, seed: int = 0) -> WorldGeometry:

@@ -422,3 +422,139 @@ def test_simulator_on_card_matches_cpu(cuda, tmp_path, regime):
     for name in ("global_stats.json", "exposures.json"):
         assert (tmp_path / "cuda" / name).read_bytes() == \
             (tmp_path / "cpu" / name).read_bytes(), name
+
+
+# -- the census/OSM pipeline ---------------------------------------------------
+def edge_world_inputs(census_cls, osm_cls, seed=5):
+    """``build_world`` inputs (census, OSM buildings, OA rings, ring
+    starts, OA codes), in national-grid metres, for a world that the
+    fixture's average OA never gives: OA k is the square [1000 k,
+    1000 (k + 1)] x [0, 1000].  E02 and E04 have no household building,
+    so no residents; E03's residents all commute out and nobody works in
+    E03 or E04, so neither has a work-side run; E05 has no occupation
+    counts and is dropped by ``filter_incomplete_output_areas``; one
+    household lies outside every polygon; E01 holds one giant commercial
+    building and schools stand in E00 and E01."""
+    rng = np.random.default_rng(seed)
+    n_oa = 6
+    codes = [f"E{k:02d}" for k in range(n_oa)]
+    age = np.zeros((n_oa, 101), np.int32)
+    age[:, :80] = 3
+    occ = rng.integers(5, 20, (n_oa, 9)).astype(np.int32)
+    occ[5] = 0
+    pop = np.zeros((n_oa, 6), np.int32)
+    pop[:, 0] = [240, 200, 150, 220, 90, 100]
+    flows = [(0, "E00", 30), (0, "E01", 20), (0, "E02", 10), (1, "E01", 20),
+             (1, "E02", 15), (1, "E09", 5), (2, "E00", 4), (3, "E00", 10),
+             (3, "E01", 10), (4, "E01", 3), (5, "E05", 7)]
+    census = census_cls(
+        oa_codes=codes, age_histogram=age, occupation_counts=occ,
+        population_counts=pop, area_hectares=np.zeros(n_oa, np.float32),
+        density=np.zeros(n_oa, np.float32),
+        commute_home=np.array([f[0] for f in flows], np.int32),
+        commute_work_code=np.array([f[1] for f in flows], dtype=object),
+        commute_count=np.array([f[2] for f in flows], np.int32))
+    buildings = []  # (class, oa, count, area)
+    for oa, n in ((0, 60), (1, 50), (3, 40), (5, 30)):
+        buildings.append((3, oa, n, 0.0))
+    for oa, n in ((0, 3), (1, 2), (2, 2)):
+        buildings.append((4, oa, n, None))
+    buildings += [(4, 1, 1, 40_000.0), (1, 0, 1, 0.0), (1, 1, 1, 0.0),
+                  (2, 1, 1, 0.0), (0, 0, 1, 0.0)]
+    cls, east, north, area = [], [], [], []
+    for c, oa, n, a in buildings:
+        cls += [c] * n
+        east.append(1000 * oa + rng.uniform(50, 950, n))
+        north.append(rng.uniform(50, 950, n))
+        area.append(rng.uniform(100, 3000, n) if a is None else np.full(n, a))
+    cls.append(3)
+    east.append(np.array([-500.0]))
+    north.append(np.array([500.0]))
+    area.append(np.zeros(1))
+    osm = osm_cls(classes=np.array(cls, np.int32), east=np.concatenate(east),
+                  north=np.concatenate(north), areas=np.concatenate(area))
+    rings = np.concatenate([np.array([(1000 * k, 0), (1000 * (k + 1), 0),
+                                      (1000 * (k + 1), 1000), (1000 * k, 1000)],
+                                     np.float64) for k in range(n_oa)])
+    starts = np.arange(0, 4 * n_oa + 1, 4, dtype=np.int64)
+    return census, osm, rings, starts, codes
+
+
+def _deterministic_params():
+    base = et.Params.covid()
+    return et.Params(
+        dataclasses.replace(base.disease, exposure_chance=1.0, exposed_time=4,
+                            infected_time=8, vaccination_rate=400),
+        dataclasses.replace(base.thresholds, lockdown=0.1, vaccination=0.02,
+                            mask_public_transport=2.0, mask_everywhere=2.0),
+    )
+
+
+def test_edge_world_on_card_matches_cpu(cuda, tmp_path):
+    """The world of ``edge_world_inputs``: OAs with no residents and with
+    no work-side run step on the card as the plain path steps on the CPU,
+    under covid_v16() and in the deterministic regime, bitwise."""
+    from epidemicsimulator_tpu_torch.data.census.container import CensusData
+    from epidemicsimulator_tpu_torch.world.preprocess.builder import (
+        OSMBuildings, build_world)
+
+    world = build_world(*edge_world_inputs(CensusData, OSMBuildings), seed=2)
+    home = np.bincount(world.home_oa, minlength=world.n_output_areas)
+    work = np.bincount(world.work_oa, minlength=world.n_output_areas)
+    assert world.n_output_areas == 5
+    assert (home == 0).any() and ((work == 0) & (home > 0)).any()
+    cfg = et.SimConfig(max_steps=72, chunk_size=24)
+    for params in (et.Params.covid_v16(), _deterministic_params()):
+        seirv = {}
+        for device in ("cuda", "cpu"):
+            et.reset_launches()
+            seirv[device] = et.Simulator(
+                world, params, cfg, seed=1, device=device, verbose=False,
+            ).simulate(str(tmp_path / device))
+            if device == "cuda":
+                assert all(et.launches[name] for name in runtime.MAIN_PATH_KERNELS), \
+                    et.launches
+        np.testing.assert_array_equal(seirv["cuda"], seirv["cpu"])
+        for name in ("global_stats.json", "exposures.json"):
+            assert (tmp_path / "cuda" / name).read_bytes() == \
+                (tmp_path / "cpu" / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("regime", ["covid_v16", "deterministic"])
+def test_pipeline_cli_on_card_matches_cpu(cuda, tmp_path, regime):
+    """The CLI's census/OSM pipeline on a 16-OA fixture of
+    tools/gen_fixture_torch.py, 48 steps: on the card and with
+    ``--device cpu``, SEIRV, global_stats.json and exposures.json
+    bitwise equal."""
+    import importlib.util
+    import json
+    import os
+
+    from epidemicsimulator_tpu_torch import cli
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "gen_fixture_torch", os.path.join(root, "tools", "gen_fixture_torch.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    pbf, shp, _ = gen.write_fixture(str(tmp_path), n_oas=16, pop_per_oa=200, seed=2)
+    params = (et.Params.covid_v16() if regime == "covid_v16"
+              else _deterministic_params())
+    params_file = str(tmp_path / "params.json")
+    params.to_json(params_file)
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = tmp_path / device
+        et.reset_launches()
+        assert cli.main([
+            "pipe", "--directory", str(tmp_path), "--pbf", pbf,
+            "--shapefile", shp, "--simulate", "--max-steps", "48",
+            "--chunk-size", "24", "--seed", "1", "--params-file", params_file,
+            "--output-name", str(out[device]), "--device", device]) == 0
+        if device == "cuda":
+            assert all(et.launches[name] for name in runtime.MAIN_PATH_KERNELS), \
+                et.launches
+    for name in ("global_stats.json", "exposures.json"):
+        assert (out["cuda"] / name).read_bytes() == (out["cpu"] / name).read_bytes(), name
+    stats = json.loads((out["cpu"] / "global_stats.json").read_text())
+    assert len(stats) > 2 and stats[-2]["infected"] + stats[-2]["recovered"] > 0

@@ -1,8 +1,9 @@
 """The port stands alone: no module of epidemicsimulator_tpu_torch, nor
-chip_smoke.py, nor the port's tools, nor the card-only tests, imports JAX
-or the JAX package, and the CUDA and host sources are built without
-PyTorch's C++ extension machinery, into a library named by the hash of
-its sources and of every flag the build passes."""
+chip_smoke.py, nor the port's tools, nor the card-only tests, imports JAX,
+the JAX package, pandas or requests (the card's machine need not have
+them), and the CUDA and host sources are built without PyTorch's C++
+extension machinery, into a library named by the hash of its sources and
+of every flag the build passes."""
 
 import ast
 import hashlib
@@ -16,7 +17,7 @@ STANDALONE = sorted(PACKAGE.rglob("*.py")) + sorted(
     (ROOT / "tools").glob("*torch*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
 ]
-FORBIDDEN = ("jax", "jaxlib", "epidemicsimulator_tpu")
+FORBIDDEN = ("jax", "jaxlib", "epidemicsimulator_tpu", "pandas", "requests")
 
 
 def _imported(path):
@@ -69,3 +70,27 @@ def test_build_flags_name_their_own_library(monkeypatch):
     monkeypatch.setattr(runtime, "_build_into", lambda path, make: (path, ""))
     assert runtime.build()[0] == default
     assert [runtime.build(x)[0] for x in extras] == paths
+
+
+def test_host_library_holds_the_osm_parser(monkeypatch):
+    """The OSM parser is the port's own copy of the source, built with the
+    Beneš router into the host library under build/, named by the hash
+    of the host flags, the libraries it links and the sources; nothing of
+    the port reads or builds the JAX package's native/ directory."""
+    from epidemicsimulator_tpu_torch import runtime
+
+    sources = sorted(runtime.CSRC.glob("*.cpp"))
+    assert [p.name for p in sources] == ["benes_route.cpp", "osm_native.cpp"]
+    h = hashlib.sha256(" ".join((*runtime.HOST_FLAGS, *runtime.HOST_LIBS)).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    path = runtime.BUILD_DIR / f"libesim_host_{h.hexdigest()[:16]}.so"
+    assert runtime.host_library_path() == path
+    assert runtime.HOST_LIBS == ("-lz",)
+    assert path.relative_to(ROOT).parts[0] == "build"
+    monkeypatch.setattr(runtime, "_build_into", lambda p, make: (p, ""))
+    assert runtime.build_host()[0] == path
+    for py in PACKAGE.rglob("*.py"):
+        text = py.read_text()
+        assert '"native"' not in text and "libesucd" not in text, py

@@ -371,11 +371,16 @@ def test_cli_checkpoint_and_resume(tmp_path):
     assert st.hour == 48 and rows.shape == (48, 5)
 
 
-def test_cli_without_synthetic_exits_with_a_message(tmp_path, caplog):
-    rc = cli.main(["york", "--simulate", "--directory", str(tmp_path),
-                   "--device", "cpu"])
-    assert rc != 0
-    assert "Queue 1 item 3" in caplog.text and "--synthetic" in caplog.text
+def test_cli_without_synthetic_exits_with_a_message(tmp_path):
+    """Without --synthetic the CLI builds the world from census files; with
+    none in --directory it raises the port's MissingDataError naming the
+    first missing table."""
+    from epidemicsimulator_tpu_torch.errors import MissingDataError
+
+    with pytest.raises(MissingDataError, match="AgeStructure") as info:
+        cli.main(["york", "--simulate", "--directory", str(tmp_path),
+                  "--device", "cpu"])
+    assert "--synthetic" in str(info.value)
 
 
 # (g) and no fallback -----------------------------------------------------
