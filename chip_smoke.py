@@ -59,14 +59,33 @@ Phases, each printing its elapsed seconds:
    OAs left after filtering, the builder's eight phase times,
    ``cli_phases.json``, ms/step by chunk, the launches and the five
    envelope values beside the JAX package's 32-seed ranges (scaled by
-   N / 197,603) are printed.
+   N / 197,603) are printed;
+9. the packed ensemble, with ``tools/run_torch_ensemble.py``: the
+   208,000-citizen synthetic world packed 64 times (13,631,488 lanes) for
+   that tool's sweep; (a) B1's ensemble mode against its plain version
+   on those lanes, a random state and rows that differ per replica,
+   lanes and (64, 8) census bitwise, timed beside its bound; (b) three
+   replicas of 3,000 citizens, deterministic and ``covid()``, 60 steps,
+   the card equal to the CPU's plain path bitwise; (c) with the launch
+   counts set to 0 just before, 1,000 steps of the 64 replicas (10
+   infected each, chunk 250), every replica's row summing to 208,000 at
+   every step, ms/step by chunk and the launches of B1 and B2;
+10. calibration through the port's CLI on the card: ``--calibrate`` on
+   phase 7's cached York world against phase 7's own
+   ``global_stats.json`` (exposure chance 0.003), ``--params-file``
+   holding ``covid_v16()``, range 1e-3..1e-2, 8 replicates, 1 round, at
+   most 1,750 steps; the fitted value must lie in [0.0015, 0.006].
 
 Each kernel's record names the path it runs on; its ``launches`` are
 the count from that path's run, ``main_path_launches`` the count from
 the main path's (0 for B4 and B5), ``york_launches`` the count from
-phase 7's CLI run, ``pipeline_launches`` the count from phase 8's.  The last two lines are the card's
-name and power limit and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, and so
-does a machine with no CUDA device.  Imports nothing of JAX.
+phase 7's CLI run, ``pipeline_launches`` the count from phase 8's,
+``ensemble_launches`` the count from phase 9's 1,000 steps,
+``calibration_launches`` the count from phase 10's.  B1's
+ensemble mode has a record of its own, ``citizen_phase_ensemble``.  The
+last two lines are the card's name and power limit and ``{"ok": true,
+"device": {...}}``.  Any failure exits non-zero, and so does a machine
+with no CUDA device.  Imports nothing of JAX.
 """
 
 import concurrent.futures
@@ -75,6 +94,7 @@ import importlib.util
 import json
 import os
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -526,12 +546,11 @@ def check_launches(counts, run):
         raise AssertionError(f"a kernel off the main path ran in {run}")
 
 
-def simulator_path(et, card):
+def simulator_path(et, card, tmp):
     """Phase 7: the York world through the port's CLI to the end of its
-    epidemic, then checkpoint and resume against that run.  Returns the
-    launch counts of the CLI run."""
-    import tempfile
-
+    epidemic, then checkpoint and resume against that run.  The world
+    cache, the parameters' file and the artifacts stay in ``tmp`` for
+    phase 10.  Returns the launch counts of the CLI run."""
     import numpy as np
     import torch
 
@@ -539,55 +558,54 @@ def simulator_path(et, card):
 
     t_phase = time.perf_counter()
     params = et.Params.covid_v16()
-    with tempfile.TemporaryDirectory() as tmp:
-        params_file = os.path.join(tmp, "covid_v16.json")
-        params.to_json(params_file)
-        out = os.path.join(tmp, "york")
-        torch.cuda.synchronize()
-        et.reset_launches()
-        rc = cli.main([
-            "york", "--census-like", "--synthetic", str(YORK_N), "--simulate",
-            "--params-file", params_file, "--seed", "0", "--max-steps", "5000",
-            "--chunk-size", str(CHUNK), "--directory", tmp, "--output-name", out])
-        counts = dict(et.launches)
-        if rc != 0:
-            raise AssertionError(f"the CLI returned {rc}")
-        seirv, timings, phases, trigger = check_artifacts(out, YORK_N)
-        steps = len(seirv)
-        inf = seirv[:, 2]
-        york = dict(peak=int(inf.max()), peak_h=int(inf.argmax()),
-                    attack=int(seirv[-1, 1:4].sum()), max_V=int(seirv[:, 4].max()),
-                    end_h=steps)
-        say(f"York CLI run on {card}: {steps} steps, SEIRV at the end "
-            f"{seirv[-1].tolist()}; cli_phases {phases}")
-        jax_path = os.path.join(ROOT, "sample_results", "york_v16", "summary.json")
-        jax = {}
-        if os.path.exists(jax_path):
-            with open(jax_path) as f:
-                jax = json.load(f)
-        for key, rng_key in (("peak", "peak_range"), ("peak_h", "peak_h_range"),
-                             ("attack", "attack_range"), ("max_V", "max_V_range"),
-                             ("end_h", "end_h_range")):
-            say(f"  {key} {york[key]}; the JAX package's 32 seeds "
-                f"{jax.get(rng_key, 'not in this checkout')}")
-        say_chunks(timings, steps, trigger)
-        check_launches(counts, "the York run")
+    params_file = os.path.join(tmp, "covid_v16.json")
+    params.to_json(params_file)
+    out = os.path.join(tmp, "york")
+    torch.cuda.synchronize()
+    et.reset_launches()
+    rc = cli.main([
+        "york", "--census-like", "--synthetic", str(YORK_N), "--simulate",
+        "--params-file", params_file, "--seed", "0", "--max-steps", "5000",
+        "--chunk-size", str(CHUNK), "--directory", tmp, "--output-name", out])
+    counts = dict(et.launches)
+    if rc != 0:
+        raise AssertionError(f"the CLI returned {rc}")
+    seirv, timings, phases, trigger = check_artifacts(out, YORK_N)
+    steps = len(seirv)
+    inf = seirv[:, 2]
+    york = dict(peak=int(inf.max()), peak_h=int(inf.argmax()),
+                attack=int(seirv[-1, 1:4].sum()), max_V=int(seirv[:, 4].max()),
+                end_h=steps)
+    say(f"York CLI run on {card}: {steps} steps, SEIRV at the end "
+        f"{seirv[-1].tolist()}; cli_phases {phases}")
+    jax_path = os.path.join(ROOT, "sample_results", "york_v16", "summary.json")
+    jax = {}
+    if os.path.exists(jax_path):
+        with open(jax_path) as f:
+            jax = json.load(f)
+    for key, rng_key in (("peak", "peak_range"), ("peak_h", "peak_h_range"),
+                         ("attack", "attack_range"), ("max_V", "max_V_range"),
+                         ("end_h", "end_h_range")):
+        say(f"  {key} {york[key]}; the JAX package's 32 seeds "
+            f"{jax.get(rng_key, 'not in this checkout')}")
+    say_chunks(timings, steps, trigger)
+    check_launches(counts, "the York run")
 
-        world = et.World.load_npz(os.path.join(tmp, "world_york_censuslike.npz"))
-        ckpt = os.path.join(tmp, "ckpt.npz")
-        cfg = et.SimConfig(max_steps=CHUNK, chunk_size=CHUNK)
-        sim = lambda: et.Simulator(world, params, cfg, seed=0, verbose=False,
-                                   checkpoint_path=ckpt, checkpoint_every_chunks=1)
-        first = sim().simulate()
-        resumed = sim()
-        if resumed.state.hour != CHUNK:
-            raise AssertionError(f"resumed at hour {resumed.state.hour}")
-        second = resumed.simulate()
-        if not (np.array_equal(first, seirv[:CHUNK])
-                and np.array_equal(second, seirv[CHUNK:2 * CHUNK])):
-            raise AssertionError("checkpoint and resume differ from the CLI run")
-        say(f"checkpoint after step {CHUNK} and resume: SEIRV rows 1-{CHUNK} and "
-            f"{CHUNK + 1}-{2 * CHUNK} equal the CLI run's, bitwise")
+    world = et.World.load_npz(os.path.join(tmp, "world_york_censuslike.npz"))
+    ckpt = os.path.join(tmp, "ckpt.npz")
+    cfg = et.SimConfig(max_steps=CHUNK, chunk_size=CHUNK)
+    sim = lambda: et.Simulator(world, params, cfg, seed=0, verbose=False,
+                               checkpoint_path=ckpt, checkpoint_every_chunks=1)
+    first = sim().simulate()
+    resumed = sim()
+    if resumed.state.hour != CHUNK:
+        raise AssertionError(f"resumed at hour {resumed.state.hour}")
+    second = resumed.simulate()
+    if not (np.array_equal(first, seirv[:CHUNK])
+            and np.array_equal(second, seirv[CHUNK:2 * CHUNK])):
+        raise AssertionError("checkpoint and resume differ from the CLI run")
+    say(f"checkpoint after step {CHUNK} and resume: SEIRV rows 1-{CHUNK} and "
+        f"{CHUNK + 1}-{2 * CHUNK} equal the CLI run's, bitwise")
     say(f"phase 7 took {time.perf_counter() - t_phase:.2f}s")
     return counts
 
@@ -596,8 +614,6 @@ def pipeline_path(et, card):
     """Phase 8: the York fixture's census CSVs, PBF and shapefile through
     the port's CLI on the card to the end of the epidemic.  Returns the
     launch counts of the CLI run."""
-    import tempfile
-
     tool = load_tool("run_torch_york_pipeline")
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -634,6 +650,151 @@ def pipeline_path(et, card):
         if summary["envelope_gate"] is None:
             say("  the JAX package's 32-seed ranges are not in this checkout")
     say(f"phase 8 took {time.perf_counter() - t_phase:.2f}s")
+    return counts
+
+
+def ensemble_path(et, card):
+    """Phase 9: B1's ensemble mode at full width, a small packed run
+    against the CPU, then 1,000 steps of 64 York-scale replicas.  Returns
+    the ensemble mode's record and the launch counts of the 1,000
+    steps."""
+    import numpy as np
+    import torch
+
+    from epidemicsimulator_tpu_torch import runtime
+    from epidemicsimulator_tpu_torch.ops import citizen
+
+    tool = load_tool("run_torch_ensemble")
+    t_phase = time.perf_counter()
+    plist, pe, pack_s = tool.pack(et, 64)
+    world = pe.world
+    n, R = world.n_citizens, pe.n_replicas
+    say(f"packed 64 x {pe.rep_size:,} citizens: {n:,} lanes, stride "
+        f"{pe.rep_stride:,}, in {pack_s:.2f}s (on the card)")
+
+    # (a) the ensemble mode on the packed lanes, a random state, the
+    # sweep's rows with a lockdown and mask state that differ per replica
+    rng = np.random.default_rng(9)
+    dev = lambda x: torch.from_numpy(x).to("cuda")
+    status = rng.choice(5, n, p=[0.80, 0.05, 0.05, 0.05, 0.05]).astype(np.int8)
+    status[np.tile(np.arange(pe.rep_stride) >= pe.rep_size, R)] = 5
+    status = dev(status)
+    timer = dev(rng.integers(0, 400, n).astype(np.int32))
+    sched = dev(rng.integers(0, 32, n).astype(np.int8))
+    f32 = np.float32
+    rep_ints = dev(np.stack([rng.random(R) < 0.8, np.arange(R) % 3,
+                             pe.exposed_time, pe.infected_time], 1).astype(np.int32))
+    rep_f32s = dev(np.stack([pe.chance, f32(1.0) - pe.mask_effectiveness], 1))
+    statics = citizen.make_citizen_statics(world)
+    kw = dict(h24=8, seed=int(rng.integers(0, 2**32)), K=world.max_household_size,
+              ref_mask_sem=True, u8_trunc=True, rep_ints=rep_ints,
+              rep_f32s=rep_f32s, tiles_per_rep=pe.rep_stride // citizen.CITIZEN_TILE)
+    got = citizen.citizen_phase(statics, status, timer, sched, want_q=True, **kw)
+    want = citizen.citizen_phase_plain(statics, status, timer, sched,
+                                       want_q=True, **kw)
+    if got[4].shape != (R, 8) or not all(
+            torch.equal(a, b) for a, b in zip(got[:5], want[:5])):
+        raise AssertionError("citizen_phase's ensemble mode disagrees with its "
+                             "plain version")
+    same_q = (got[5] == want[5]) | (got[5].isnan() & want[5].isnan())
+    ulp = int(torch.where(same_q, 0, (got[5].view(torch.int32).long()
+                                      - want[5].view(torch.int32).long()).abs()).max())
+    max_err = float(torch.where(same_q, 0.0, (got[5] - want[5]).abs()).max())
+    if ulp > 2:
+        raise AssertionError(f"ensemble mode: q differs by {ulp} ulp")
+    without_q = citizen.citizen_phase(statics, status, timer, sched, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(without_q, got[:5])):
+        raise AssertionError("ensemble mode differs without q")
+    say(f"B1 ensemble mode on {n:,} lanes: status, timer, sched, gates and "
+        f"the (64, 8) census bitwise equal to its plain version; q within "
+        f"{ulp} ulp (max abs {max_err:.3e}); home hits {int(got[4][:, 7].sum())}")
+    t_b, by = bound(n * (1 + 4 + 1 + 5 + 1 + 4 + 1 + 1), 150 * n)
+    rec = dict(
+        name="citizen_phase_ensemble", route="cuda",
+        source="epidemicsimulator_tpu_torch/csrc/citizen.cu",
+        replaces="epidemicsimulator_tpu/ops/pallas_citizen.py:367",
+        path="ensemble", max_abs_err=max_err,
+        ms=runtime.cuda_ms(lambda: citizen.citizen_phase(
+            statics, status, timer, sched, **kw)),
+        plain_ms=runtime.cuda_ms(lambda: citizen.citizen_phase_plain(
+            statics, status, timer, sched, **kw), reps=5),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        **device_record(lambda: citizen.citizen_phase(
+            statics, status, timer, sched, **kw)),
+    )
+    say(f"B1 ensemble mode on {card}: {rec['ms']:.4f} ms per call, "
+        f"{rec['device_ms']:.4f} ms of device time in {rec['device_ops']:g} "
+        f"device operations, bound {t_b:.4f} ms ({by}); plain version "
+        f"{rec['plain_ms']:.3f} ms")
+    del got, want, without_q, status, timer, sched, statics
+
+    # (b) a small packed run against the CPU
+    for regime in tool.SMALL_REGIMES:
+        on_card, on_cpu, _ = tool.small_card_vs_cpu(et, regime)
+        if not all(torch.equal(a, b) for a, b in zip(on_card, on_cpu)):
+            raise AssertionError(f"packed run, {regime}: card and CPU disagree")
+        say(f"packed run of 3 replicas x 3,000, {regime}, 60 steps: card == "
+            f"CPU plain path bitwise; final SEIRV {on_cpu[0][-1].tolist()}")
+
+    # (c) 1,000 steps of the 64 replicas
+    res = tool.run(et, plist, pe, steps=1000, chunk=CHUNK)
+    seirv, counts = res["seirv"], res["launches"]
+    peaks = seirv[:, :, 2].max(axis=1)
+    say(f"64 replicas x {seirv.shape[1]} steps on {card}: every row sums to "
+        f"{pe.rep_size:,} at every step; ms/step by chunk of {CHUNK}: "
+        + " ".join(f"{ms:.3f}" for ms in res["chunk_ms"])
+        + f"; peaks above 100 after {seirv.shape[1]} steps: "
+        f"{int((peaks > 100).sum())}, peak quartiles "
+        f"{np.percentile(peaks, [25, 50, 75]).tolist()}")
+    say(f"  launches in the ensemble run: {counts}; B1 (ensemble mode) "
+        f"{counts['citizen_phase_ensemble']}, B2 {counts['run_totals_fused']}")
+    if not all(counts[name] for name in runtime.ENSEMBLE_PATH_KERNELS):
+        raise AssertionError("a kernel of the ensemble path was never launched")
+    if any(v for name, v in counts.items()
+           if name not in runtime.ENSEMBLE_PATH_KERNELS):
+        raise AssertionError("a kernel off the ensemble path ran in it")
+    rec["launches"] = counts["citizen_phase_ensemble"]
+    say(f"phase 9 took {time.perf_counter() - t_phase:.2f}s")
+    return rec, counts
+
+
+def calibrate_path(et, card, tmp):
+    """Phase 10: the CLI's --calibrate on the card against phase 7's run.
+    Returns the launch counts of the calibration."""
+    import torch
+
+    from epidemicsimulator_tpu_torch import cli, runtime
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "calibration.json")
+    torch.cuda.synchronize()
+    et.reset_launches()
+    rc = cli.main([
+        "york", "--census-like", "--synthetic", str(YORK_N), "--use-cache",
+        "--directory", tmp, "--calibrate",
+        os.path.join(tmp, "york", "global_stats.json"),
+        "--params-file", os.path.join(tmp, "covid_v16.json"),
+        "--calibrate-range", "1e-3,1e-2", "--calibrate-replicates", "8",
+        "--calibrate-rounds", "1", "--max-steps", "1750",
+        "--chunk-size", str(CHUNK), "--seed", "0", "--output-name", out])
+    counts = dict(et.launches)
+    if rc != 0:
+        raise AssertionError(f"the CLI's --calibrate returned {rc}")
+    with open(out) as f:
+        result = json.load(f)
+    rnd = result["rounds"][0]
+    say(f"calibration on {card} against phase 7's global_stats.json "
+        f"(exposure chance 0.003): fitted {result['param']} = "
+        f"{result['value']:.6g}, score {result['score']}")
+    say("  candidates and scores: " + "; ".join(
+        f"{c:.4g} {sc:.4f}" for c, sc in zip(rnd["candidates"], rnd["scores"])))
+    say(f"  launches in the calibration: {counts}")
+    if not all(counts[name] for name in runtime.ENSEMBLE_PATH_KERNELS):
+        raise AssertionError("the calibration did not run the ensemble kernels")
+    if not 0.0015 <= result["value"] <= 0.006:
+        raise AssertionError(f"the fitted exposure chance {result['value']} "
+                             "is not within a factor of two of 0.003")
+    say(f"phase 10 took {time.perf_counter() - t_phase:.2f}s")
     return counts
 
 
@@ -680,11 +841,18 @@ def main():
         rec["main_path_launches"] = counts[rec["name"]]
     torch.cuda.synchronize()
     small_reference(et)
-    york_counts = simulator_path(et, smi)
-    pipeline_counts = pipeline_path(et, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        york_counts = simulator_path(et, smi, tmp)
+        pipeline_counts = pipeline_path(et, smi)
+        ens_rec, ens_counts = ensemble_path(et, smi)
+        ens_rec["main_path_launches"] = counts[ens_rec["name"]]
+        records.append(ens_rec)
+        calibration_counts = calibrate_path(et, smi, tmp)
     for rec in records:
         rec["york_launches"] = york_counts[rec["name"]]
         rec["pipeline_launches"] = pipeline_counts[rec["name"]]
+        rec["ensemble_launches"] = ens_counts[rec["name"]]
+        rec["calibration_launches"] = calibration_counts[rec["name"]]
 
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -7,11 +7,14 @@ path to the end of the epidemic and writes the reference's four JSON
 artifacts; ``python -m epidemicsimulator_tpu_torch.cli`` drives it, on a
 synthetic world or on one that ``world.preprocess.builder.build_world``
 makes from census tables, an OSM extract and OA polygons (``data/``).
-Entry points run on the card unless the caller passes ``device="cpu"``,
+``run_ensemble`` steps R parameter replicates of a world as one packed
+world (``engine/packed.py``), and ``calibrate.calibrate`` fits a
+parameter to a target curve with it.  Entry points run on the card unless the caller passes ``device="cpu"``,
 where each CUDA kernel is replaced by its plain torch version.
 """
 
 from .config import DiseaseParams, InterventionThresholds, Params, SimConfig
+from .engine.ensemble import run_ensemble
 from .engine.scan import make_chunk_runner, run
 from .engine.simulator import Simulator
 from .engine.state import SimState, init_state
@@ -26,5 +29,5 @@ __all__ = [
     "SimState", "Simulator", "StepOutput", "World",
     "generate_census_like_world", "generate_synthetic_world",
     "init_state", "launches", "make_chunk_runner", "make_world",
-    "reset_launches", "resolve_device", "run", "step",
+    "reset_launches", "resolve_device", "run", "run_ensemble", "step",
 ]

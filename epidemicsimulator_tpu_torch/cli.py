@@ -6,25 +6,33 @@ Modes:
   --download              fetch the four census tables from NOMIS
   --resume ROW --table T  resume a partial table download
   --simulate              build/load the world and run the epidemic
+  --calibrate TARGET      fit a parameter to a reference-format
+                          global_stats.json instead of simulating
   --synthetic N           use a synthetic world of N citizens (no data files)
 
   python -m epidemicsimulator_tpu_torch.cli 1946157112 --directory data \\
       --pbf york.osm.pbf --shapefile york_oas.shp --simulate
   python -m epidemicsimulator_tpu_torch.cli york --census-like \\
       --synthetic 197603 --simulate --params-file v16.json
+  python -m epidemicsimulator_tpu_torch.cli york --census-like \\
+      --synthetic 197603 --calibrate global_stats.json \\
+      --calibrate-range 1e-3,1e-2 --calibrate-replicates 8
 
 The port's copy of ``epidemicsimulator_tpu/cli.py``: it builds the world
 from the census CSVs in ``--directory``, the ``.osm.pbf`` extract and the
 OA shapefile (or a synthetic world; with ``--use-cache`` it loads the
 cached one), runs the Simulator on the card (``--device cpu`` for the
 plain versions on the CPU) and writes the four reference JSON artifacts
-and ``cli_phases.json`` into ``--output-name``.  The world cache, its
+and ``cli_phases.json`` into ``--output-name``.  ``--calibrate`` fits
+``--calibrate-param`` (a DiseaseParams or InterventionThresholds field)
+to the SEIRV series of a ``global_stats.json`` by rounds of packed
+ensembles on the same device (calibrate.py) and writes the result's JSON
+to ``--output-name`` (default ``<area>_calibration.json``).  The world cache, its
 geometry sidecar, the OSM parse cache ``<pbf>.parsed.npz`` and
 ``<world cache>.build_timings.json`` have the JAX package's names and
 layout.  The downloads compute nothing on a device and run without a
 card.  Not offered yet: ``--render`` and ``--visualise*`` (ROADMAP.md
-Queue 1), ``--calibrate`` (Queue 1 item 5) and ``--devices`` (Queue 1
-item 8).
+Queue 1) and ``--devices`` (Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -66,6 +74,15 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-steps", type=int, default=5000)
     p.add_argument("--chunk-size", type=int, default=250)
+    p.add_argument("--calibrate", default=None, metavar="TARGET_JSON",
+                   help="fit a parameter so the epidemic matches a "
+                   "reference-format global_stats.json (packed-ensemble "
+                   "grid refinement; calibrate.py) instead of simulating")
+    p.add_argument("--calibrate-param", default="exposure_chance")
+    p.add_argument("--calibrate-range", default="1e-4,1e-2",
+                   help="lo,hi bracket for the calibrated parameter")
+    p.add_argument("--calibrate-replicates", type=int, default=16)
+    p.add_argument("--calibrate-rounds", type=int, default=2)
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="steps between state snapshots (0 = off)")
     p.add_argument("--pbf", default=None, help="OSM .pbf extract path")
@@ -216,6 +233,31 @@ def download(args) -> int:
     return 0
 
 
+def calibrate(args, world) -> int:
+    """``--calibrate``: packed-ensemble rounds on ``--device``."""
+    from .calibrate import calibrate as fit, load_target_series
+    from .config import Params, SimConfig
+
+    cfg = SimConfig(max_steps=args.max_steps, chunk_size=args.chunk_size)
+    base = Params.from_json(args.params_file) if args.params_file else Params.covid()
+    target = load_target_series(args.calibrate)
+    lo, hi = (float(x) for x in args.calibrate_range.split(","))
+    result = fit(
+        world, base, cfg, target,
+        param=args.calibrate_param, bounds=(lo, hi),
+        replicates=args.calibrate_replicates,
+        rounds=args.calibrate_rounds, seed=args.seed, device=args.device,
+    )
+    out_path = args.output_name or f"{args.area}_calibration.json"
+    with open(out_path, "w") as f:
+        json.dump(result, f, indent=1)
+    print(
+        f"calibrated {result['param']} = {result['value']:.6g} "
+        f"(score {result['score']['score']:.4f}); wrote {out_path}"
+    )
+    return 0
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=os.environ.get("LOG_LEVEL", "INFO"),
@@ -231,6 +273,9 @@ def main(argv=None) -> int:
 
     world = load_or_build_world(args, phases)
     phases["world_load_or_build_s"] = round(time.perf_counter() - t_start, 2)
+
+    if args.calibrate:
+        return calibrate(args, world)
 
     if args.simulate:
         from .config import Params, SimConfig
@@ -269,7 +314,7 @@ def main(argv=None) -> int:
         logging.info("results dumped to %s", out_dir)
         return 0
 
-    logging.warning("no mode selected; try --simulate")
+    logging.warning("no mode selected; try --simulate or --calibrate")
     return 1
 
 

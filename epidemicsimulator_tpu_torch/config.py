@@ -142,3 +142,9 @@ class SimConfig:
     bus_capacity: int = BUS_CAPACITY
     #: infections seeded by the Simulator's initial state
     starting_infected: int = STARTING_INFECTED_COUNT
+    #: the packed ensemble's bus streams (engine/packed.py): None or False
+    #: draws the ties and the exposures from threefry counters over the
+    #: whole packed rider lane, so they depend on its length; True hashes
+    #: each rider's global id (ops/segments.py ``bus_hits`` with
+    #: ``tie_bits`` and ``draw_seed``).  The two have the same law.
+    id_keyed_ensemble_rng: bool | None = None

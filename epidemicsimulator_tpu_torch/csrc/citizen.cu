@@ -41,6 +41,16 @@
 //     the next call) sums the partials into the totals: no same-address
 //     atomics, and no memset before the launch.
 //
+// Ensemble mode (engine/packed.py): R replicas of one world lie in R
+// contiguous spans of tiles_per_rep tiles.  Each block reads its
+// replica's row of two small tables, (R, 4) int32 [move, mask status,
+// exposed time, infected time] and (R, 2) float32 [exposure chance,
+// 1 - mask effectiveness], in place of the scalars, and the last block
+// also sums the partials of each replica's tiles into an (R, 8) census.
+// A halo read across a replica's edge is advanced with this block's row,
+// which is harmless: a household never crosses a replica, and only the
+// citizen's own household's bits are counted.
+//
 // Built without fast math; products are written with __fmul_rn so that
 // no multiply-add is contracted.  The hash index is the global citizen
 // id.
@@ -80,6 +90,14 @@ struct Outs {
   int* partials;   // CENSUS ints per block
   int* totals;     // CENSUS ints
   unsigned* ticket;  // 0 between calls
+  int* rep_totals;   // CENSUS ints per replica, ensemble mode only
+};
+
+// The ensemble mode's parameter rows (ints null outside it).
+struct Reps {
+  const int* ints;     // (n, 4): move, mask_status, e_time, i_time
+  const float* f32s;   // (n, 2): p0, mask_scale
+  int tiles, n;        // tiles per replica, replicas
 };
 
 __device__ __forceinline__ void advance(int st, int tm, const Step& s,
@@ -153,7 +171,8 @@ __device__ __forceinline__ void store_int4(int32_t* p, long long i0,
 
 template <bool WANT_Q>
 __global__ void __launch_bounds__(TILE_THREADS, 3)
-citizen_tile(Lanes in, Outs out, long long n, Step s, bool aligned) {
+citizen_tile(Lanes in, Outs out, long long n, Step s, bool aligned,
+             Reps reps) {
   __shared__ uint32_t home[HOME_WORDS];  // bit 32 + k: tile citizen k
   __shared__ float qtab[64];             // [masked][n infected at home]
   __shared__ int wsum[WARPS][CENSUS];
@@ -161,6 +180,15 @@ citizen_tile(Lanes in, Outs out, long long n, Step s, bool aligned) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const long long base = (long long)blockIdx.x * TILE_ELEMS;
   const long long i0 = base + (long long)t * TILE_ITEMS;
+  if (reps.ints) {
+    const int r = blockIdx.x / reps.tiles;
+    s.move = __ldg(reps.ints + 4 * r) != 0;
+    s.mask_status = __ldg(reps.ints + 4 * r + 1);
+    s.e_time = __ldg(reps.ints + 4 * r + 2);
+    s.i_time = __ldg(reps.ints + 4 * r + 3);
+    s.p0 = __ldg(reps.f32s + 2 * r);
+    s.mask_scale = __ldg(reps.f32s + 2 * r + 1);
+  }
 
   // the halo: warp 0 the 32 citizens before the tile, warp 1 those after;
   // their lanes are read first, with the tile's, and used after
@@ -329,6 +357,16 @@ citizen_tile(Lanes in, Outs out, long long n, Step s, bool aligned) {
     for (int w = 0; w < WARPS; ++w) total += wsum[w][t];
     out.totals[t] = total;
   }
+  if (!reps.ints) return;
+  // thread t adds census entry t % 8 of replica t / 8 over its tiles
+  for (int o = t; o < reps.n * CENSUS; o += TILE_THREADS) {
+    const int* p = out.partials + (long long)(o / CENSUS) * reps.tiles * CENSUS +
+                   o % CENSUS;
+    int rep_sum = 0;
+#pragma unroll 8
+    for (int j = 0; j < reps.tiles; ++j) rep_sum += __ldcg(p + j * CENSUS);
+    out.rep_totals[o] = rep_sum;
+  }
 }
 
 }  // namespace
@@ -340,6 +378,12 @@ citizen_tile(Lanes in, Outs out, long long n, Step s, bool aligned) {
 // 0 before the first call and that each call leaves at 0, so calls that
 // share it must run in stream order.  Outputs must be 16-byte aligned;
 // the input lanes may have any alignment.
+//
+// Ensemble mode: rep_ints (n_reps x 4 int32) and rep_f32s (n_reps x 2
+// float) on the device, n = n_reps * tiles_per_rep * 2,048, and
+// rep_totals receives n_reps x 8 ints; move, mask_status, e_time,
+// i_time, p0 and mask_scale are then unused.  rep_ints null: no
+// ensemble mode.
 extern "C" int es_citizen_phase(
     const void* sa, const void* sb, const void* sc, const void* sd,
     const void* se, const void* status, const void* timer, const void* sched,
@@ -347,7 +391,9 @@ extern "C" int es_citizen_phase(
     void* totals, void* partials, long long partials_bytes, void* ticket,
     void* q_out, long long n, int h24, int move, int mask_status,
     unsigned seed, int e_time, int i_time, float p0, float mask_scale,
-    int ref_mask_sem, int u8_trunc, void* stream) {
+    int ref_mask_sem, int u8_trunc, const void* rep_ints,
+    const void* rep_f32s, int tiles_per_rep, int n_reps, void* rep_totals,
+    void* stream) {
   const long long blocks = (n + TILE_ELEMS - 1) / TILE_ELEMS;
   const uintptr_t outs = (uintptr_t)status_out | (uintptr_t)timer_out |
                          (uintptr_t)sched_out | (uintptr_t)gates_out |
@@ -355,6 +401,12 @@ extern "C" int es_citizen_phase(
   if (n <= 0 || blocks > 0x7fffffffLL || (outs & 15) != 0 ||
       partials_bytes < blocks * CENSUS * (long long)sizeof(int))
     return (int)cudaErrorInvalidValue;
+  if (rep_ints && (!rep_f32s || !rep_totals || tiles_per_rep <= 0 ||
+                   n_reps <= 0 ||
+                   n != (long long)n_reps * tiles_per_rep * TILE_ELEMS))
+    return (int)cudaErrorInvalidValue;
+  const Reps reps{(const int*)rep_ints, (const float*)rep_f32s, tiles_per_rep,
+                  n_reps};
   const uintptr_t ins = (uintptr_t)sa | (uintptr_t)sb | (uintptr_t)sc |
                         (uintptr_t)sd | (uintptr_t)se | (uintptr_t)status |
                         (uintptr_t)timer | (uintptr_t)sched;
@@ -365,13 +417,13 @@ extern "C" int es_citizen_phase(
            (const int32_t*)timer, (const int8_t*)sched};
   Outs out{(int8_t*)status_out, (int8_t*)sched_out, (int8_t*)gates_out,
            (int32_t*)timer_out, (float*)q_out, (int*)partials, (int*)totals,
-           (unsigned*)ticket};
+           (unsigned*)ticket, (int*)rep_totals};
   const bool aligned = (ins & 15) == 0;
   if (q_out)
     citizen_tile<true><<<(unsigned)blocks, TILE_THREADS, 0,
-                         (cudaStream_t)stream>>>(in, out, n, s, aligned);
+                         (cudaStream_t)stream>>>(in, out, n, s, aligned, reps);
   else
     citizen_tile<false><<<(unsigned)blocks, TILE_THREADS, 0,
-                          (cudaStream_t)stream>>>(in, out, n, s, aligned);
+                          (cudaStream_t)stream>>>(in, out, n, s, aligned, reps);
   return (int)cudaGetLastError();
 }

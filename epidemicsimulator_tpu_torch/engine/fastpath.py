@@ -43,7 +43,7 @@ from ..config import (
 from ..ops import maths, scans, segments, threefry
 from ..ops.citizen import CitizenStatics, citizen_phase, make_citizen_statics
 from ..ops.hashrng import hash_bits, hash_uniform
-from ..ops.select import bisect_threshold
+from ..ops.select import bisect_threshold_rows
 from .state import SimState, check_formulation
 from .step import StepOutput
 
@@ -81,13 +81,18 @@ def make_step_tables(world) -> StepTables:
     )
 
 
+def mask_active(ms, compliant, on_bus, reference):
+    """disease.rs:131-154 mask activity: ``ms`` a Python int for one
+    world, an (R, 1) column over (R, M) views for a packed ensemble."""
+    if reference:
+        return (ms == MASK_EVERYWHERE) & ~compliant
+    return compliant & ((ms == MASK_EVERYWHERE)
+                        | ((ms == MASK_PUBLIC_TRANSPORT) & on_bus))
+
+
 def _exposure_p(p0, mask_scale, mask_status, compliant, on_bus, reference):
     """Mask-adjusted exposure chance in float32 (disease.rs:131-154)."""
-    if reference:
-        active = (mask_status == MASK_EVERYWHERE) & ~compliant
-    else:
-        active = compliant & ((mask_status == MASK_EVERYWHERE)
-                              | ((mask_status == MASK_PUBLIC_TRANSPORT) & on_bus))
+    active = mask_active(mask_status, compliant, on_bus, reference)
     # float32 values times a Python float that is exactly a float32:
     # the product is the float32 product, as in the JAX package
     return torch.where(active, float(mask_scale), 1.0) * float(p0)
@@ -125,7 +130,7 @@ def _vaccinate(status, eligible, rate, seed_vax, tables, faithful):
     order.  No device read."""
     k = torch.clamp(eligible.sum(), max=int(rate))
     scores = hash_bits(seed_vax, tables.iota)
-    tau = bisect_threshold(scores, eligible, k)
+    tau = bisect_threshold_rows(scores[None], eligible[None], k.view(1))[0]
     below = eligible & (scores < tau)
     at = eligible & (scores == tau)
     allowed = k - below.sum()
@@ -137,15 +142,20 @@ def _vaccinate(status, eligible, rate, seed_vax, tables, faithful):
     return new, eligible, chosen.sum(dtype=torch.int32)
 
 
-def _next_mask_status(ms, pct, th_pt, th_all):
-    """interventions.rs:142-180."""
-    if ms == MASK_NONE:
-        return MASK_PUBLIC_TRANSPORT if pct > th_pt else MASK_NONE
-    if ms == MASK_PUBLIC_TRANSPORT:
-        if pct < th_pt:
-            return MASK_NONE
-        return MASK_EVERYWHERE if pct > th_all else MASK_PUBLIC_TRANSPORT
-    return MASK_PUBLIC_TRANSPORT if pct < th_all else MASK_EVERYWHERE
+def next_mask_status(ms, pct, th_pt, th_all):
+    """interventions.rs:142-180, elementwise: scalars for one world, (R,)
+    rows for a packed ensemble.  Returns int8 numpy values."""
+    return np.where(
+        ms == MASK_NONE,
+        np.where(pct > th_pt, MASK_PUBLIC_TRANSPORT, MASK_NONE),
+        np.where(
+            ms == MASK_PUBLIC_TRANSPORT,
+            np.where(pct < th_pt, MASK_NONE,
+                     np.where(pct > th_all, MASK_EVERYWHERE,
+                              MASK_PUBLIC_TRANSPORT)),
+            np.where(pct < th_all, MASK_PUBLIC_TRANSPORT, MASK_EVERYWHERE),
+        ),
+    ).astype(np.int8)
 
 
 def fast_step(world, params, cfg, state: SimState, tables=None):
@@ -231,9 +241,9 @@ def fast_step(world, params, cfg, state: SimState, tables=None):
     vaccination_started = state.vaccination_started or newly_started
     if newly_started:
         eligible = status == STATUS_SUSCEPTIBLE
-    ms_next = _next_mask_status(state.mask_status, pct,
-                                f32(th.mask_public_transport),
-                                f32(th.mask_everywhere))
+    ms_next = int(next_mask_status(state.mask_status, pct,
+                                   f32(th.mask_public_transport),
+                                   f32(th.mask_everywhere)))
 
     if vaccination_started:
         status, eligible, n_vax = _vaccinate(

@@ -36,3 +36,14 @@ def range_totals(values, lo, hi):
     cs = torch.cumsum(values.to(torch.int32), 0, dtype=torch.int32)
     cs0 = torch.cat([cs.new_zeros(1), cs])
     return cs0[hi.long()] - cs0[lo.long()]
+
+
+def permute_by_sort(static_rank, payload, bits=8):
+    """Position r receives the payload of the element of rank r, masked to
+    its low ``bits`` bits, as int8: ``out[static_rank[i]] = payload[i]``.
+    The JAX package sorts packed keys for this; the values are those of
+    one scatter by the static rank.  ``static_rank`` is a permutation."""
+    out = torch.empty_like(payload, dtype=torch.int8)
+    out[static_rank.long()] = (payload.to(torch.int32) & ((1 << bits) - 1)).to(
+        torch.int8)
+    return out

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import maths, threefry
+from .hashrng import hash_uniform
 from .runsums import run_totals
 from .sparse import block_hierarchy, compact_from_hierarchy
 
@@ -31,7 +32,8 @@ def shuffle_order(rk, tie_u32):
 
 
 def _shuffle_and_draw(key_shuffle, key_draw, rb_on, rb_inf, rb_compliant,
-                      rider_route, capacity: int, exposure_p_fn):
+                      rider_route, capacity: int, exposure_p_fn,
+                      rb_chance=None, tie_bits=None, draw_seed=None):
     """Sorted rider order and the post-draw candidates ``valid & u < q``
     (susceptibility not yet applied), both in sorted order."""
     r = rb_on.shape[0]
@@ -39,7 +41,9 @@ def _shuffle_and_draw(key_shuffle, key_draw, rb_on, rb_inf, rb_compliant,
     rk = torch.where(rb_on, rider_route.long(),
                      torch.full((r,), INT32_MAX, dtype=torch.int64,
                                 device=device))
-    rk_s, order = shuffle_order(rk, threefry.bits(key_shuffle, r, device))
+    tie = (threefry.bits(key_shuffle, r, device) if tie_bits is None
+           else tie_bits)
+    rk_s, order = shuffle_order(rk, tie)
 
     pos_i = torch.arange(r, dtype=torch.int64, device=device)
     boundary = torch.ones(r, dtype=torch.bool, device=device)
@@ -51,16 +55,22 @@ def _shuffle_and_draw(key_shuffle, key_draw, rb_on, rb_inf, rb_compliant,
 
     n_bus = run_totals(rb_inf[order], bus_start, bus_end)
     valid = rk_s != INT32_MAX
-    p = exposure_p_fn(rb_compliant[order], valid)
+    if rb_chance is None:
+        p = exposure_p_fn(rb_compliant[order], valid)
+    else:
+        p = exposure_p_fn(rb_compliant[order], valid, rb_chance[order])
     q = torch.where(valid & (n_bus > 0), maths.binomial_at_least_one(p, n_bus),
                     0.0)
-    cand = valid & (threefry.uniform(key_draw, r, device) < q)
-    return order, cand
+    if draw_seed is None:
+        u = threefry.uniform(key_draw, r, device)
+    else:
+        u = hash_uniform(draw_seed, order)
+    return order, valid & (u < q)
 
 
 def bus_hits(key_shuffle, key_draw, rb_on, rb_inf, rb_susc, rb_compliant,
              rider_route, rider_citizen_id, capacity: int, exposure_p_fn,
-             n_citizens: int):
+             n_citizens: int, rb_chance=None, tie_bits=None, draw_seed=None):
     """Bus exposures of one step.
 
     Inputs are rider-order lanes (R,): riding now, infected, susceptible,
@@ -68,6 +78,15 @@ def bus_hits(key_shuffle, key_draw, rb_on, rb_inf, rb_susc, rb_compliant,
     rider.  ``exposure_p_fn(compliant, on_bus) -> float32`` gives the
     mask-adjusted exposure chance.  Returns ``(cit_lane, rider_lane,
     n_hits)``: the (n_citizens,) and (R,) bool hit lanes and their count.
+
+    ``rb_chance``: each rider's own float32 chance (the packed ensemble
+    sweeps exposure_chance per replica); it follows the shuffle, and
+    ``exposure_p_fn`` is then called as ``(compliant, on_bus,
+    chance_sorted)``.  ``tie_bits`` (u32 values in int64) and
+    ``draw_seed`` replace the counter streams over the rider lane: the
+    ties are the given lane and the draw of the rider with id i is
+    ``hash_uniform(draw_seed, i)``, independent of the lane's
+    length and order.
     """
     r = rb_on.shape[0]
     device = rb_on.device
@@ -78,7 +97,8 @@ def bus_hits(key_shuffle, key_draw, rb_on, rb_inf, rb_susc, rb_compliant,
                                                  device=device)
     order, cand = _shuffle_and_draw(key_shuffle, key_draw, rb_on, rb_inf,
                                     rb_compliant, rider_route, capacity,
-                                    exposure_p_fn)
+                                    exposure_p_fn, rb_chance, tie_bits,
+                                    draw_seed)
     hit = cand & rb_susc[order]
     hit_riders = order[hit]
     rider_lane[hit_riders] = True

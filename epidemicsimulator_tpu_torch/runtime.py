@@ -42,12 +42,16 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 HOST_LIBS = ("-lz",)
 
 #: launches of each kernel since the last :func:`reset_launches`; each
-#: wrapper adds one where it launches its kernel and nowhere else.
+#: wrapper adds one where it launches its kernel and nowhere else.  B1's
+#: ensemble mode counts under ``citizen_phase_ensemble``.
 launches = {"citizen_phase": 0, "run_totals_fused": 0, "cumsum_i8": 0,
-            "cumsum_i8_2phase": 0, "benes_permute": 0}
-#: the kernels that the fused step launches; the other two run on the
-#: paths of ``tools/probe_torch_cumsum.py`` and ``tools/probe_torch_benes.py``
+            "cumsum_i8_2phase": 0, "benes_permute": 0,
+            "citizen_phase_ensemble": 0}
+#: the kernels that the fused step launches; B4 and B5 run on the paths
+#: of ``tools/probe_torch_cumsum.py`` and ``tools/probe_torch_benes.py``
 MAIN_PATH_KERNELS = ("citizen_phase", "run_totals_fused", "cumsum_i8")
+#: the kernels that the packed ensemble's step launches (engine/packed.py)
+ENSEMBLE_PATH_KERNELS = ("citizen_phase_ensemble", "run_totals_fused")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -68,7 +72,7 @@ _SIGNATURES = {
                      ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                      ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                     ctypes.c_int, _P],
+                     ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P],
         ctypes.c_int,
     ),
 }

@@ -8,6 +8,8 @@ This file imports nothing of JAX; run it on a machine with a card as
 """
 
 import dataclasses
+import importlib.util
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -16,9 +18,12 @@ import torch
 
 import epidemicsimulator_tpu_torch as et
 from epidemicsimulator_tpu_torch import runtime
+from epidemicsimulator_tpu_torch.engine import packed
 from epidemicsimulator_tpu_torch.ops import benes, citizen, scans
 
 pytestmark = pytest.mark.gpu
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -26,6 +31,15 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _tool(name):
+    """A module of tools/ by file path (tools/ is not a package)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _runs(rng, n, avg_run, within=None):
@@ -260,8 +274,9 @@ def _check_citizen(got, want):
     assert not bool((flip & (ulp != 1)).any())
     for a, b in zip(got[:4], want[:4]):
         assert torch.equal(a[~flip], b[~flip])
-    assert torch.equal(got[4][:7], want[4][:7])
-    assert abs(int(got[4][7]) - int(want[4][7])) <= int(flip.sum())
+    # the census, (8,) or (R, 8) in the ensemble mode
+    assert torch.equal(got[4][..., :7], want[4][..., :7])
+    assert int((got[4][..., 7] - want[4][..., 7]).abs().sum()) <= int(flip.sum())
 
 
 @pytest.mark.parametrize("h24,move,mask_status,p0", [
@@ -359,6 +374,86 @@ def test_citizen_kernel_on_standin_households(cuda, n, ref_mask_sem, u8_trunc):
             assert len(got_noq) == 5
             for a, b in zip(got_noq, got[:5]):
                 assert torch.equal(a, b)
+
+
+def _ensemble_rows(R, cuda):
+    """Different rows per replica: one locked down, one with chance 0,
+    the three mask states, p0 = 1 (q NaN where no housemate is
+    infected)."""
+    f32 = np.float32
+    rng = np.random.default_rng(R)
+    ints = np.stack([rng.random(R) < 0.7, np.arange(R) % 3,
+                     rng.integers(2, 100, R), rng.integers(5, 300, R)],
+                    1).astype(np.int32)
+    ints[0, 0] = 0
+    chance = rng.uniform(0.0, 0.3, R).astype(f32)
+    chance[min(1, R - 1)], chance[-1] = 0.0, 1.0
+    scale = (f32(1.0) - rng.uniform(0.2, 0.9, R).astype(f32)).astype(f32)
+    return (torch.from_numpy(ints).to(cuda),
+            torch.from_numpy(np.stack([chance, scale], 1)).to(cuda))
+
+
+@pytest.mark.parametrize("R,block_rows", [(1, 16), (5, 128), (12, 16)])
+def test_citizen_kernel_ensemble_mode_matches_plain(cuda, R, block_rows):
+    """B1's ensemble mode on packed lanes (tiles_per_rep 1 to 64), a
+    random state, under two flag combinations, with q and without; the
+    (R, 8) census against the plain per-replica sums; and a scalar call
+    between two ensemble calls on the same stream (the census ticket)."""
+    base = et.generate_synthetic_world(30_000, n_output_areas=10, seed=R)
+    pe = packed.pack_replicas(base, [et.Params.covid()] * R,
+                              block_rows=block_rows)
+    world = pe.world.to(cuda)
+    n = world.n_citizens
+    rng = np.random.default_rng(R)
+    dev = lambda x: torch.from_numpy(x).to(cuda)
+    status = rng.choice(5, n, p=[0.6, 0.1, 0.2, 0.05, 0.05]).astype(np.int8)
+    status[np.tile(np.arange(pe.rep_stride) >= pe.rep_size, R)] = 5
+    status, timer, sched = (dev(status), dev(rng.integers(0, 400, n).astype(np.int32)),
+                            dev(rng.integers(0, 32, n).astype(np.int8)))
+    rep_ints, rep_f32s = _ensemble_rows(R, cuda)
+    statics = citizen.make_citizen_statics(world)
+    tiles = pe.rep_stride // citizen.CITIZEN_TILE
+    for h24, ref_mask_sem, u8_trunc in ((8, True, True), (16, False, False)):
+        kw = dict(h24=h24, seed=int(rng.integers(0, 2**32)),
+                  K=world.max_household_size, ref_mask_sem=ref_mask_sem,
+                  u8_trunc=u8_trunc, rep_ints=rep_ints, rep_f32s=rep_f32s,
+                  tiles_per_rep=tiles)
+        got = citizen.citizen_phase(statics, status, timer, sched, want_q=True, **kw)
+        want = citizen.citizen_phase_plain(statics, status, timer, sched,
+                                           want_q=True, **kw)
+        assert got[4].shape == (R, 8)
+        _check_citizen(got, want)
+        scalar = citizen.citizen_phase(
+            statics, status, timer, sched, h24=h24, seed=kw["seed"], move=True,
+            mask_status=0, exposed_time=96, infected_time=336,
+            exposure_chance=np.float32(0.01), mask_scale=np.float32(0.3),
+            K=kw["K"], ref_mask_sem=ref_mask_sem, u8_trunc=u8_trunc)
+        again = citizen.citizen_phase(statics, status, timer, sched, **kw)
+        assert torch.equal(scalar[4], citizen.citizen_phase(
+            statics, status, timer, sched, h24=h24, seed=kw["seed"], move=True,
+            mask_status=0, exposed_time=96, infected_time=336,
+            exposure_chance=np.float32(0.01), mask_scale=np.float32(0.3),
+            K=kw["K"], ref_mask_sem=ref_mask_sem, u8_trunc=u8_trunc)[4])
+        for a, b in zip(again, got[:5]):
+            assert torch.equal(a, b)
+    if R > 1:
+        assert int(got[4][1, 7]) == 0  # chance 0: no home hit
+
+
+@pytest.mark.parametrize("regime", ["deterministic", "covid"])
+def test_packed_run_on_card_matches_cpu(cuda, regime):
+    """Three replicas of 3,000 citizens with transport, 60 steps
+    (tools/run_torch_ensemble.py::small_card_vs_cpu): the card's packed
+    run (B1's ensemble mode, B2) equals the CPU's plain run, SEIRV and
+    final lanes bitwise."""
+    on_card, on_cpu, launches = _tool("run_torch_ensemble").small_card_vs_cpu(
+        et, regime, cuda)
+    assert launches["citizen_phase_ensemble"] == 60
+    assert launches["run_totals_fused"] > 0
+    assert launches["citizen_phase"] == 0
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a, b)
+    assert (on_cpu[0].sum(2) == 3000).all()
 
 
 def test_main_path_on_card_matches_cpu(cuda):
@@ -526,17 +621,11 @@ def test_pipeline_cli_on_card_matches_cpu(cuda, tmp_path, regime):
     tools/gen_fixture_torch.py, 48 steps: on the card and with
     ``--device cpu``, SEIRV, global_stats.json and exposures.json
     bitwise equal."""
-    import importlib.util
     import json
-    import os
 
     from epidemicsimulator_tpu_torch import cli
 
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "gen_fixture_torch", os.path.join(root, "tools", "gen_fixture_torch.py"))
-    gen = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gen)
+    gen = _tool("gen_fixture_torch")
     pbf, shp, _ = gen.write_fixture(str(tmp_path), n_oas=16, pop_per_oa=200, seed=2)
     params = (et.Params.covid_v16() if regime == "covid_v16"
               else _deterministic_params())

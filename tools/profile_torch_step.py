@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Where a step of the PyTorch port spends its time on the card.
 
-    python3 tools/profile_torch_step.py [--world yh|york] [--steps 500]
-                                        [--profile-from 250] [--table FILE]
+    python3 tools/profile_torch_step.py [--world yh|york|ensemble64]
+        [--steps 500] [--profile-from 250] [--table FILE]
 
 Runs a cell step by step on one CUDA card, timing each step on the host
 clock around a synchronize, and traces steps ``--profile-from``.. with
 torch.profiler.  ``yh``: the main path (the 3,457,142-citizen synthetic
 world, seed 0, 20,000 infected, Params.covid()); ``york``: the York v1.6
 run (the census-like world of 197,603 citizens, 637 OAs, seed 42, 10
-infected, sim seed 0, Params.covid_v16()).  Prints per-regime step times,
+infected, sim seed 0, Params.covid_v16()); ``ensemble64``: the packed
+ensemble of ``tools/run_torch_ensemble.py`` (64 replicas of the
+208,000-citizen synthetic world, 13,631,488 lanes, its sweep, 10
+infected each), stepped by ``engine/packed.py::packed_step`` (a regime
+holds a step when any replica is in it).  Prints per-regime step times,
 the device's busy and idle share over the traced window and the device
 time by kernel: the top 20, then every kernel of ``csrc/`` and the
 memsets.  ``--table`` writes the profiler's full table to FILE.
@@ -24,14 +28,39 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 #: the kernels of csrc/ on the step, listed after the top 20: B1
-#: (citizen_tile), B2 (runs_reduce, runs_apply, after a memset of its
-#: descriptors) and B3 (cumsum_lookback, after a memset of its own)
+#: (citizen_tile, in both modes), B2 (runs_reduce, runs_apply, after a
+#: memset of its descriptors) and B3 (cumsum_lookback, after a memset of
+#: its own)
 PORT_KERNELS = ("citizen_tile", "runs_reduce", "runs_apply",
                 "cumsum_lookback", "Memset")
 
 
 def make_cell(et, name):
-    """``(world on the card, initial state, params)`` of a cell."""
+    """``(step, initial state)`` of a cell: ``step(state) -> state``."""
+    from epidemicsimulator_tpu_torch.engine import packed
+    from epidemicsimulator_tpu_torch.engine.fastpath import make_step_tables
+
+    cfg = et.SimConfig()
+    if name == "ensemble64":
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "run_torch_ensemble", os.path.join(ROOT, "tools", "run_torch_ensemble.py"))
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+        plist, pe, _ = tool.pack(et, 64)
+        tables = packed.make_packed_tables(pe)
+        th = plist[0].thresholds
+        return (lambda st: packed.packed_step(pe, th, cfg, st, tables)[0],
+                packed.init_packed_state(pe, seed=0, starting_infected=10))
+    world, state, params = make_world_cell(et, name)
+    tables = make_step_tables(world)
+    return lambda st: et.step(world, params, cfg, st, tables=tables)[0], state
+
+
+def make_world_cell(et, name):
+    """``(world on the card, initial state, params)`` of a one-world
+    cell."""
     if name == "yh":
         world = et.generate_synthetic_world(3_457_142, n_output_areas=15_669,
                                             seed=0).to("cuda")
@@ -43,7 +72,7 @@ def make_cell(et, name):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--world", choices=("yh", "york"), default="yh")
+    ap.add_argument("--world", choices=("yh", "york", "ensemble64"), default="yh")
     ap.add_argument("--steps", type=int, default=500)
     ap.add_argument("--profile-from", type=int, default=250)
     ap.add_argument("--table")
@@ -53,16 +82,15 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    import numpy as np
+
     import epidemicsimulator_tpu_torch as et
     from epidemicsimulator_tpu_torch import runtime
-    from epidemicsimulator_tpu_torch.engine.fastpath import make_step_tables
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    world, state, params = make_cell(et, args.world)
-    cfg = et.SimConfig()
-    tables = make_step_tables(world)
+    step, state = make_cell(et, args.world)
     times = {}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     traced_wall = 0.0
@@ -71,8 +99,9 @@ def main():
             prof.start()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        lockdown, hour, vax = state.lockdown, state.hour + 1, state.vaccination_started
-        state, _ = et.step(world, params, cfg, state, tables=tables)
+        lockdown, hour = np.any(state.lockdown), state.hour + 1
+        vax = np.any(state.vaccination_started)
+        state = step(state)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         if i >= args.profile_from:
