@@ -74,14 +74,34 @@ Phases, each printing its elapsed seconds:
    phase 7's cached York world against phase 7's own
    ``global_stats.json`` (exposure chance 0.003), ``--params-file``
    holding ``covid_v16()``, range 1e-3..1e-2, 8 replicates, 1 round, at
-   most 1,750 steps; the fitted value must lie in [0.0015, 0.006].
+   most 1,750 steps; the fitted value must lie in [0.0015, 0.006];
+11. the full-UK path, with ``tools/run_torch_full_uk.py``: (a)
+   ``build_tables_device`` on the card, fed the core lanes of phase 1's
+   Y&H world, every lane equal to that world's host-built tables; (b)
+   the synthetic world of 63,000,000 citizens and 227,759 OAs (seed 0)
+   built on the card, its seconds by stage, sizes and peak memory
+   printed, ``World.validate()`` passing; (c) with the launch counts set
+   to 0 just before, ``init_state(seed=0, starting_infected=360_000)``
+   with the fixed-priority vaccination pool, ``covid()``, two chunks of
+   250 steps, every SEIRV row summing to N, ms/step by chunk, the pool's
+   size at each chunk end, the launches and the peak memory printed;
+   after chunk 1, B1, B2 and B3 held against their plain versions at
+   63M (``hold_step_kernels``: B1 on the live state, with and without
+   movement; B2 on the world's masks over the live infected lane and a
+   random 0/1 lane; B3 on the live eligible lane), their launches taken
+   off the counts;
+   (d) the same run on the device-built world of 16,000,000 citizens and
+   57,843 OAs (seed 0), chunk 24, whose rows after steps 24 and 48 must
+   equal those of the port's and the JAX package's CPU runs
+   (:data:`UK16_ROWS`).
 
 Each kernel's record names the path it runs on; its ``launches`` are
 the count from that path's run, ``main_path_launches`` the count from
 the main path's (0 for B4 and B5), ``york_launches`` the count from
 phase 7's CLI run, ``pipeline_launches`` the count from phase 8's,
 ``ensemble_launches`` the count from phase 9's 1,000 steps,
-``calibration_launches`` the count from phase 10's.  B1's
+``calibration_launches`` the count from phase 10's, ``uk_launches`` the
+count from phase 11's 500 steps at 63M.  B1's
 ensemble mode has a record of its own, ``citizen_phase_ensemble``.  The
 last two lines are the card's name and power limit and ``{"ok": true,
 "device": {...}}``.  Any failure exits non-zero, and so does a machine
@@ -105,6 +125,10 @@ N_OAS = 15_669
 CHUNK = 250
 YORK_N = 197_603
 SEIRV_KEYS = ("susceptible", "exposed", "infected", "recovered", "vaccinated")
+#: phase 11 (d): the SEIRV rows after steps 24 and 48 of the 16M run,
+#: as the port and the JAX package computed them on the CPU
+UK16_ROWS = {24: [15597094, 11759, 355998, 0, 35149],
+             48: [15548977, 23282, 355998, 0, 71743]}
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_INT32_OPS_PER_S = 33.5e12  # non-tensor INT32, H100 SXM data sheet
 T0 = time.perf_counter()
@@ -149,6 +173,49 @@ def device_record(fn, host_fn=None):
     return dict(device_ms=sum(ms for ms, _ in rows.values()),
                 device_ops=sum(c for _, c in rows.values()),
                 host_us=runtime.host_us(host_fn or fn))
+
+
+def hold_citizen_phase(statics, status, timer, sched, kw):
+    """B1 against its plain version on one input, both with q: q within
+    2 ulp (CUDA's expf bound), a home hit differing only where q differs
+    by exactly 1 ulp, the lanes and census equal elsewhere, and the same
+    lanes without q.  Returns (worst q ulp, max abs q error, flipped home
+    hits, whether the plain q has a NaN)."""
+    import torch
+
+    from epidemicsimulator_tpu_torch.ops import citizen
+
+    kw = dict(kw, want_q=True)
+    got = citizen.citizen_phase(statics, status, timer, sched, **kw)
+    want = citizen.citizen_phase_plain(statics, status, timer, sched, **kw)
+    q_got, q_want = got[5], want[5]
+    same_q = (q_got == q_want) | (torch.isnan(q_got) & torch.isnan(q_want))
+    ulp = torch.where(same_q, 0, (q_got.view(torch.int32).long()
+                                  - q_want.view(torch.int32).long()).abs())
+    worst_ulp = int(ulp.max())
+    max_err = float(torch.where(same_q, 0.0, (q_got - q_want).abs()).max())
+    flip = ((got[3] & 4) != 0) != ((want[3] & 4) != 0)
+    if worst_ulp > 2 or bool((flip & (ulp != 1)).any()):
+        raise AssertionError(
+            f"citizen_phase: q differs by {worst_ulp} ulp, or a home hit "
+            f"differs where q does not differ by exactly 1 ulp")
+    keep = ~flip
+    for a, b, name in zip(got[:4], want[:4],
+                          ("status", "timer", "sched", "gates")):
+        if not torch.equal(a[keep], b[keep]):
+            raise AssertionError(f"citizen_phase: {name} disagrees")
+    n_flip = int(flip.sum())
+    if not torch.equal(got[4][:7], want[4][:7]) or (
+            int((got[4][7] - want[4][7]).abs()) > n_flip):
+        raise AssertionError("citizen_phase: census disagrees")
+    nan_q = bool(torch.isnan(q_want).any())
+    del want, q_want, same_q, ulp, flip, keep
+    kw.update(want_q=False)
+    without_q = citizen.citizen_phase(statics, status, timer, sched, **kw)
+    if len(without_q) != 5 or not all(
+            torch.equal(a, b) for a, b in zip(without_q, got[:5])):
+        raise AssertionError("citizen_phase differs without q")
+    return worst_ulp, max_err, n_flip, nan_q
 
 
 def check_kernels(world_dev, rng):
@@ -247,39 +314,13 @@ def check_kernels(world_dev, rng):
                   infected_time=336, exposure_chance=f32(p0),
                   mask_scale=f32(1.0) - f32(0.7),
                   K=world_dev.max_household_size, ref_mask_sem=ref_mask_sem,
-                  u8_trunc=u8_trunc, want_q=True)
-        got = citizen.citizen_phase(statics, status, timer, sched, **kw)
-        want = citizen.citizen_phase_plain(statics, status, timer, sched, **kw)
-        q_got, q_want = got[5], want[5]
-        same_q = (q_got == q_want) | (torch.isnan(q_got) & torch.isnan(q_want))
-        ulp = torch.where(same_q, 0, (q_got.view(torch.int32).long()
-                                      - q_want.view(torch.int32).long()).abs())
-        worst_ulp = max(worst_ulp, int(ulp.max()))
-        max_err = max(max_err, float(torch.where(
-            same_q, 0.0, (q_got - q_want).abs()).max()))
-        flip = ((got[3] & 4) != 0) != ((want[3] & 4) != 0)
-        hit_flips += int(flip.sum())
-        # q within 2 ulp (CUDA's expf bound); a home hit may differ only
-        # where q differs, by at most 1 ulp
-        if worst_ulp > 2 or bool((flip & (ulp != 1)).any()):
-            raise AssertionError(
-                f"citizen_phase: q differs by {worst_ulp} ulp, or a home hit "
-                f"differs where q does not differ by exactly 1 ulp")
-        keep = ~flip
-        for a, b, name in zip(got[:4], want[:4],
-                              ("status", "timer", "sched", "gates")):
-            if not torch.equal(a[keep], b[keep]):
-                raise AssertionError(f"citizen_phase: {name} disagrees")
-        if not torch.equal(got[4][:7], want[4][:7]) or (
-                int((got[4][7] - want[4][7]).abs()) > int(flip.sum())):
-            raise AssertionError("citizen_phase: census disagrees")
-        if p0 == 1.0 and not bool(torch.isnan(q_want).any()):
+                  u8_trunc=u8_trunc)
+        ulp, err, flips, nan_q = hold_citizen_phase(statics, status, timer,
+                                                    sched, kw)
+        worst_ulp, max_err = max(worst_ulp, ulp), max(max_err, err)
+        hit_flips += flips
+        if p0 == 1.0 and not nan_q:
             raise AssertionError("the p0 = 1 case has no NaN q to check")
-        kw.update(want_q=False)
-        without_q = citizen.citizen_phase(statics, status, timer, sched, **kw)
-        if len(without_q) != 5 or not all(
-                torch.equal(a, b) for a, b in zip(without_q, got[:5])):
-            raise AssertionError("citizen_phase differs without q")
     say(f"B1 citizen_phase: lanes and census equal to its plain version "
         f"under all four combinations of the reference flags, with and "
         f"without q; q differs by at most {worst_ulp} ulp (max abs "
@@ -798,6 +839,181 @@ def calibrate_path(et, card, tmp):
     return counts
 
 
+def hold_step_kernels(et, world, state, params, cfg, rng):
+    """B1, B2 and B3 against their plain versions at a stepped world's
+    full width, on the card: B1 on the world's statics and the live state
+    with the next hour's arguments, once with movement and once without;
+    B2 on the world's work-order masks over the live infected lane in
+    work order and over a random 0/1 lane; B3 on the live eligible
+    lane, the one the fixed-priority pool's draw scans.  The launches
+    made here are taken back off the counts."""
+    import numpy as np
+    import torch
+
+    from epidemicsimulator_tpu_torch.config import STATUS_INFECTED
+    from epidemicsimulator_tpu_torch.ops import citizen, scans
+
+    before = dict(et.launches)
+    d, f32 = params.disease, np.float32
+    statics = citizen.make_citizen_statics(world)
+    kw = dict(h24=(state.hour + 1) % 24, mask_status=state.mask_status,
+              seed=int(rng.integers(0, 2**32)),
+              exposed_time=int(d.exposed_time),
+              infected_time=int(d.infected_time),
+              exposure_chance=f32(d.exposure_chance),
+              mask_scale=f32(1.0) - f32(d.mask_effectiveness),
+              K=world.max_household_size,
+              ref_mask_sem=cfg.reference_mask_semantics,
+              u8_trunc=cfg.reference_u8_truncation)
+    worst_ulp, flips = 0, 0
+    for move in (True, False):
+        ulp, _, n_flip = hold_citizen_phase(
+            statics, state.status, state.timer, state.sched,
+            dict(kw, move=move))[:3]
+        worst_ulp, flips = max(worst_ulp, ulp), flips + n_flip
+    del statics
+    live = (state.status[world.work_perm.long()] == STATUS_INFECTED).to(
+        torch.int8)
+    gen = torch.Generator(device=live.device).manual_seed(
+        int(rng.integers(0, 2**31)))
+    rand = (torch.rand(live.shape[0], generator=gen, device=live.device)
+            < 0.3).to(torch.int8)
+    sets = [(world.ws_wb_start_mask, world.ws_wb_end_mask),
+            (world.ws_room_start_mask, world.ws_room_end_mask)]
+    for name, v in (("the infected lane", live), ("a random 0/1 lane", rand)):
+        got = scans.run_totals_fused(v, sets)
+        want = scans.run_totals_fused_plain(v, sets)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"run_totals_fused disagrees with its plain "
+                                 f"version at N = {world.n_citizens:,} ({name})")
+    n_live = int(live.sum())
+    del live, rand, got, want
+    if not torch.equal(scans.cumsum_i8(state.eligible),
+                       scans.cumsum_i8_plain(state.eligible)):
+        raise AssertionError(f"cumsum_i8 disagrees with its plain version at "
+                             f"N = {world.n_citizens:,} (the eligible lane)")
+    et.launches.update(before)
+    say(f"  after step {state.hour}, at N = {world.n_citizens:,}: B1 equal "
+        f"to its plain version with and without movement (q within "
+        f"{worst_ulp} ulp, home hits that differ by a 1-ulp q: {flips}); B2 "
+        f"equal on the work-order masks over the infected lane "
+        f"({n_live:,} ones) and a random 0/1 lane; B3 equal on the eligible "
+        f"lane ({int(state.eligible.sum()):,} eligible)")
+
+
+def full_uk_path(et, world_dev, card):
+    """Phase 11: the device table build against phase 1's world, the
+    63M world built and stepped on the card, and the 16M run against the
+    CPU's rows.  Returns the launch counts of the 63M run."""
+    import numpy as np
+    import torch
+
+    from epidemicsimulator_tpu_torch import runtime
+    from epidemicsimulator_tpu_torch.world.device_build import (
+        build_tables_device,
+    )
+
+    tool = load_tool("run_torch_full_uk")
+    t_phase = time.perf_counter()
+    # (a) the tables of phase 1's world, rebuilt on the card
+    core = et.World(n_buildings=world_dev.n_buildings,
+                    n_rooms=world_dev.n_rooms,
+                    n_output_areas=world_dev.n_output_areas,
+                    **{name: getattr(world_dev, name)
+                       for name in et.World.CORE_LANES})
+    t = time.perf_counter()
+    tabled = build_tables_device(core)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    names = tabled.lane_names()
+    if tabled.max_household_size != world_dev.max_household_size or not all(
+            torch.equal(getattr(tabled, name), getattr(world_dev, name))
+            for name in names):
+        raise AssertionError("build_tables_device disagrees with the host "
+                             "build of phase 1's world")
+    say(f"build_tables_device on {card}, N = {world_dev.n_citizens:,}: "
+        f"{len(names)} lanes equal to the host build's, in {dt:.3f}s")
+    del core, tabled
+
+    # (b) the 63M world
+    world, stages, world_s, build_gb = tool.build(et)
+    world.validate()
+    n = world.n_citizens
+    say(f"full-UK world built on {card} in {world_s:.2f}s: N = {n:,}, "
+        f"{world.n_output_areas:,} OAs, {world.n_buildings:,} buildings, "
+        f"{world.n_rooms:,} rooms, {world.n_riders:,} riders, largest "
+        f"household {world.max_household_size}; peak memory "
+        f"{build_gb:.2f} GB; validate() passed")
+    say("  seconds by stage: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    if os.path.exists(tool.JAX_SUMMARY):
+        with open(tool.JAX_SUMMARY) as f:
+            say(f"  the JAX package's device build of this world had "
+                f"{json.load(f)['n_buildings']:,} buildings")
+
+    # (c) two chunks of 250 steps with the pool
+    cfg = et.SimConfig(max_steps=2 * CHUNK, chunk_size=CHUNK)
+    params = et.Params.covid()
+    state = tool.start(et, world, cfg)
+    if state.vax_pool.shape[0] != n:
+        raise AssertionError("the fixed-priority pool is off at 63M")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    et.reset_launches()
+    flags = []
+    for c, (state, seirv, lockdown, dt) in enumerate(
+            tool.chunks(et, world, cfg, state, params, 2)):
+        flags += lockdown.tolist()
+        say(f"  chunk {c + 1}: SEIRV after step {state.hour} = "
+            f"{seirv[-1].tolist()}; {dt * 1e3 / CHUNK:.3f} ms/step; pool "
+            f"size {int(state.vax_pool_size):,}; lockdown={state.lockdown} "
+            f"mask={state.mask_status}")
+        if c == 0:
+            if not all(int(x) > 0 for x in seirv[-1][[0, 1, 2, 4]]):
+                raise AssertionError("S, E, I and V must all be live after "
+                                     "chunk 1")
+            run_gb = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            hold_step_kernels(et, world, state, params, cfg,
+                              np.random.default_rng(11))
+            hold_gb = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+    counts = dict(et.launches)
+    lifted = next((i + 1 for i in range(1, len(flags))
+                   if flags[i - 1] and not flags[i]), None)
+    say(f"  every row sums to {n:,}; the lockdown first lifts at hour "
+        f"{lifted}; peak memory over the run "
+        f"{max(run_gb, torch.cuda.max_memory_allocated() / 1e9):.2f} GB (over "
+        f"the hold after chunk 1: {hold_gb:.2f} GB); launches {counts}")
+    if not all(counts[name] for name in runtime.MAIN_PATH_KERNELS):
+        raise AssertionError("a kernel of the main path was never launched "
+                             "at 63M")
+    if any(v for name, v in counts.items()
+           if name not in runtime.MAIN_PATH_KERNELS):
+        raise AssertionError("a kernel off the main path ran at 63M")
+    del world, state
+    torch.cuda.empty_cache()
+
+    # (d) 16M, against the CPU's rows
+    world, _, world_s, _ = tool.build(et, 16_000_000, 57_843)
+    cfg = et.SimConfig(max_steps=48, chunk_size=24)
+    state = tool.start(et, world, cfg)
+    if state.vax_pool.shape[0] != world.n_citizens:
+        raise AssertionError("the fixed-priority pool is off at 16M")
+    rows = {}
+    for c, (state, seirv, _, dt) in enumerate(
+            tool.chunks(et, world, cfg, state, params, 2)):
+        rows[24 * (c + 1)] = seirv[-1].tolist()
+    say(f"16M world built in {world_s:.2f}s; SEIRV after steps 24 and 48: "
+        f"{rows[24]}, {rows[48]}; the CPU's {UK16_ROWS[24]}, {UK16_ROWS[48]}")
+    if rows != UK16_ROWS:
+        raise AssertionError("the 16M run on the card differs from the CPU's")
+    del world, state
+    torch.cuda.empty_cache()
+    say(f"phase 11 took {time.perf_counter() - t_phase:.2f}s")
+    return counts
+
+
 def main():
     import torch
 
@@ -848,11 +1064,13 @@ def main():
         ens_rec["main_path_launches"] = counts[ens_rec["name"]]
         records.append(ens_rec)
         calibration_counts = calibrate_path(et, smi, tmp)
+    uk_counts = full_uk_path(et, world_dev, smi)
     for rec in records:
         rec["york_launches"] = york_counts[rec["name"]]
         rec["pipeline_launches"] = pipeline_counts[rec["name"]]
         rec["ensemble_launches"] = ens_counts[rec["name"]]
         rec["calibration_launches"] = calibration_counts[rec["name"]]
+        rec["uk_launches"] = uk_counts[rec["name"]]
 
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -50,8 +50,9 @@ def params_from_values(disease: Mapping, thresholds: Mapping) -> Params:
 def state_from_arrays(arrays: Mapping[str, np.ndarray], device="cuda") -> SimState:
     """A port SimState from the JAX SimState's lanes: status, timer,
     eligible, the five schedule bool lanes (or a packed ``sched``), hour,
-    lockdown, vaccination_started, mask_status and ``rng_key`` as the key
-    data (uint32[2], ``jax.random.key_data``)."""
+    lockdown, vaccination_started, mask_status, ``rng_key`` as the key
+    data (uint32[2], ``jax.random.key_data``) and, where present, the
+    fixed-priority pool's ``vax_pool`` and ``vax_pool_size``."""
     dev = resolve_device(device)
     t = lambda name: torch.from_numpy(np.array(arrays[name])).to(dev)
     if "sched" in arrays and np.size(arrays["sched"]):
@@ -65,6 +66,11 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray], device="cuda") -> SimSta
         timer=t("timer").to(torch.int32),
         sched=sched,
         eligible=t("eligible").to(torch.bool),
+        vax_pool=(t("vax_pool").to(torch.int32) if "vax_pool" in arrays
+                  else torch.zeros(0, dtype=torch.int32, device=dev)),
+        vax_pool_size=(t("vax_pool_size").to(torch.int32).reshape(())
+                       if "vax_pool_size" in arrays
+                       else torch.zeros((), dtype=torch.int32, device=dev)),
         hour=int(np.asarray(arrays["hour"])),
         lockdown=bool(np.asarray(arrays["lockdown"])),
         vaccination_started=bool(np.asarray(arrays["vaccination_started"])),

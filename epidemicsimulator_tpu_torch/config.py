@@ -148,3 +148,19 @@ class SimConfig:
     #: each rider's global id (ops/segments.py ``bus_hits`` with
     #: ``tie_bits`` and ``draw_seed``).  The two have the same law.
     id_keyed_ensemble_rng: bool | None = None
+    #: Sampled vaccination draws: keep the eligible pool as a compacted
+    #: index array (rebuilt by one stable partition only when the pool
+    #: halves), and each step draw 8,192 uniform candidate slots, reject
+    #: entries whose citizens left the pool (checked against the live
+    #: ``eligible`` lane), and take the first k distinct: a uniform
+    #: k-subset of the current pool, i.e. the same law as the default
+    #: fresh-threshold selector, for both faithful and intended pool
+    #: semantics.  The per-step work is K-sized instead of a pool-wide
+    #: threshold search; the step falls back to the threshold selector on
+    #: candidate shortfall (the fallback is also a uniform k-subset).
+    #: Changes which individual citizens are picked (different draw
+    #: stream), so trajectories differ from the default mode but match in
+    #: law.  Requires init_state(..., fixed_priority_vax=True) for the
+    #: lanes; the step raises without them.  None = auto: on for worlds with >= 16M citizens, as in the
+    #: JAX package (``engine/fastpath.py::wants_fixed_priority_vax``).
+    vaccination_fixed_priority: bool | None = None

@@ -8,9 +8,10 @@ so that a checkpoint written by either package resumes in the other:
 * the scalars ``hour``, ``lockdown``, ``vaccination_started`` and
   ``mask_status``;
 * ``rng_key_data``, the threefry key as uint32[2];
+* the fixed-priority vaccination pool, ``vax_pool`` ((N,) int32, or
+  (0,) when the pool is off) and ``vax_pool_size``;
 * the JAX package's lanes that the port does not carry, as (0,)-shaped
-  sentinels: the replicated-order twins, the fixed-priority vaccination
-  pool and the packed ``sched``;
+  sentinels: the replicated-order twins and the packed ``sched``;
 * optionally ``__seirv__``, the recorder's rows so far.
 
 The file is written beside its destination and renamed into place.
@@ -31,7 +32,7 @@ from .state import SCHED_LANES, SimState, unpack_sched
 #: ``init_state``), so they are dropped on load whatever their shape.
 _JAX_ONLY = {
     "status_ws": np.int8, "timer_ws": np.int16, "status_r": np.int8,
-    "timer_r": np.int16, "on_bus_r": np.bool_, "vax_pool": np.int32,
+    "timer_r": np.int16, "on_bus_r": np.bool_,
 }
 
 
@@ -48,7 +49,8 @@ def save_state(path: str, state: SimState, seirv_so_far=None) -> None:
         "mask_status": np.asarray(state.mask_status, np.int8),
         "rng_key_data": np.asarray(state.rng_key, np.uint32),
         **{name: np.zeros(0, dtype) for name, dtype in _JAX_ONLY.items()},
-        "vax_pool_size": np.asarray(0, np.int32),
+        "vax_pool": host(state.vax_pool),
+        "vax_pool_size": host(state.vax_pool_size),
         "sched": np.zeros(0, np.int8),
     }
     if seirv_so_far is not None:
@@ -59,16 +61,9 @@ def save_state(path: str, state: SimState, seirv_so_far=None) -> None:
 
 
 def load_state(path: str, device="cuda") -> tuple[SimState, np.ndarray | None]:
-    """``(state on device, the recorder's rows or None)``.  Raises
-    NotImplementedError for a state that carries the JAX package's
-    fixed-priority vaccination pool, a formulation the port does not
-    have (ROADMAP.md Queue 1 item 6)."""
+    """``(state on device, the recorder's rows or None)``."""
     with np.load(path) as data:
         arrays = {name: data[name] for name in data.files}
-    if np.size(arrays.get("vax_pool", ())):
-        raise NotImplementedError(
-            f"{path} holds a fixed-priority vaccination pool, which the "
-            "port does not have yet (ROADMAP.md Queue 1 item 6)")
     seirv = arrays.pop("__seirv__", None)
     arrays["rng_key"] = arrays.pop("rng_key_data")
     missing = [name for name in SCHED_LANES if name not in arrays]

@@ -17,7 +17,11 @@ Per step:
 5. the hits are applied, the home exposures are counted per OA (B3),
    the interventions are updated on the host from the census, and an
    exact-k vaccination picks the k lowest fresh hash scores of the pool,
-   ranking ties at the threshold with B3.
+   ranking ties at the threshold with B3; or, from 16M citizens on (the
+   fixed-priority pool, ``SimConfig.vaccination_fixed_priority``), the
+   first k distinct live ids of 8,192 draws from a compacted pool of
+   citizen ids.  The pool's hours read the device once more: whether the
+   pool was rebuilt and whether the draws were enough.
 
 The JAX package has a sorted and a sortless body for the work and bus
 sides, chosen per hour by cost; they give identical values, and so does
@@ -44,7 +48,8 @@ from ..ops import maths, scans, segments, threefry
 from ..ops.citizen import CitizenStatics, citizen_phase, make_citizen_statics
 from ..ops.hashrng import hash_bits, hash_uniform
 from ..ops.select import bisect_threshold_rows
-from .state import SimState, check_formulation
+from ..ops.sparse import scatter_bits
+from .state import SimState
 from .step import StepOutput
 
 
@@ -124,22 +129,91 @@ def _work_side(world, tables, cfg, p_fn, gates, sched, seed_w, record_oa):
     return hit_ws[tables.wpos], oa_work
 
 
-def _vaccinate(status, eligible, rate, seed_vax, tables, faithful):
+#: the fixed-priority pool's candidate draws per step
+POOL_DRAWS = 8192
+_SEQ_BITS = 13  # POOL_DRAWS == 1 << _SEQ_BITS
+
+
+def wants_fixed_priority_vax(world, cfg) -> bool:
+    """Whether the step vaccinates from the fixed-priority pool (the JAX
+    package's ``engine/fastpath.py::wants_fixed_priority_vax``); callers
+    of ``init_state`` pass it to allocate the pool's lanes.  Auto (None):
+    on for worlds of 16M citizens or more."""
+    fp = cfg.vaccination_fixed_priority
+    if fp is None:
+        fp = world.n_citizens >= 16_000_000
+    return bool(fp) and world.has_fast_tables
+
+
+def _fresh_choice(eligible, k, seed_vax, tables):
     """Exact-k uniform selection (simulator.rs:524-553): the k lowest
     fresh hash scores of the pool, ties at the threshold taken in citizen
     order.  No device read."""
-    k = torch.clamp(eligible.sum(), max=int(rate))
     scores = hash_bits(seed_vax, tables.iota)
     tau = bisect_threshold_rows(scores[None], eligible[None], k.view(1))[0]
     below = eligible & (scores < tau)
     at = eligible & (scores == tau)
     allowed = k - below.sum()
-    chosen = below | (at & (scans.cumsum_i8(at) <= allowed))
-    new = torch.where(chosen, STATUS_VACCINATED, status)
-    if not faithful:
-        new = torch.where(chosen & (status != STATUS_SUSCEPTIBLE), status, new)
-        eligible = eligible & ~chosen
-    return new, eligible, chosen.sum(dtype=torch.int32)
+    return below | (at & (scans.cumsum_i8(at) <= allowed))
+
+
+def _pool_choice(eligible, rate, k_vax, pool, pool_size, newly_started,
+                 tables):
+    """The fixed-priority pool's draw (the JAX package's
+    ``fastpath.py:1609-1644`` and ``:1694-1734``): returns ``(chosen,
+    pool, pool_size)``.  k, the eligible count clamped to ``rate``, comes
+    from the eligible lane's cumsum, which the draw needs anyway.
+
+    The pool is rebuilt, as the stable partition of the citizen ids by
+    ``~eligible``, the step vaccination starts and when the live pool has
+    fallen below half of ``pool_size``.  POOL_DRAWS threefry draws from
+    ``k_vax`` pick slots below the pool's size (Lemire rejection), the
+    slots' ids that are no longer eligible are rejected, and the first k
+    distinct ids in draw order are chosen; when fewer than k come up, the
+    fresh threshold selector seeded from ``fold_in(k_vax, 1)`` chooses
+    instead.  Both decisions depend on the device's data; the draw is
+    made for both pools at once (the rebuilt pool's slot s holds the
+    (s+1)-th eligible id, found in the eligible lane's cumsum) and the two
+    flags come to the host in one read."""
+    n = eligible.shape[0]
+    dev = eligible.device
+    cum = scans.cumsum_i8(eligible)
+    k = torch.clamp(cum[-1], max=rate)
+    n_elig = cum[-1].to(torch.int64)
+    need = (n_elig * 2 < pool_size) | bool(newly_started)
+    size = torch.where(need, n_elig, pool_size.to(torch.int64))
+    u = threefry.bits(k_vax, POOL_DRAWS, device=dev)
+    size_u = torch.clamp(size, min=1)
+    accept = u >= (2**32 - size_u) % size_u  # 2^32 mod size
+    slot = u % size_u
+    rank_member = torch.searchsorted(cum, (slot + 1).to(torch.int32))
+    pool_member = pool[torch.clamp(slot, max=n - 1)].long()
+    members = torch.clamp(torch.where(need, rank_member, pool_member),
+                          max=n - 1)
+    alive = accept & (slot < size) & eligible[members]
+    # the first k distinct ids in draw order: sort (id, draw) as one key
+    seq = torch.arange(POOL_DRAWS, dtype=torch.int64, device=dev)
+    key = torch.sort((torch.where(alive, members, n) << _SEQ_BITS) | seq).values
+    sk, ss = key >> _SEQ_BITS, key & (POOL_DRAWS - 1)
+    first = (sk < n) & torch.cat([sk.new_ones(1, dtype=torch.bool),
+                                  sk[1:] != sk[:-1]])
+    n_distinct = first.sum()
+    order = torch.sort(torch.where(first, ss, 2**30)).values
+    kth_seq = order[torch.clamp(k.to(torch.int64) - 1, 0, POOL_DRAWS - 1)]
+    sel = first & (ss <= kth_seq) & (k >= 1)
+    rebuilt, enough = torch.stack([need, n_distinct >= k]).tolist()
+    if rebuilt:
+        iota = tables.iota
+        pos = torch.where(eligible, cum.long() - 1, n_elig + iota - cum)
+        pool = torch.empty(n, dtype=torch.int32, device=dev)
+        pool[pos] = iota.to(torch.int32)
+        pool_size = n_elig.to(torch.int32)
+    if enough:
+        chosen = scatter_bits(n, torch.where(sel, sk, n), sel)
+    else:
+        chosen = _fresh_choice(eligible, k, threefry.bits(
+            threefry.fold_in(k_vax, 1)), tables)
+    return chosen, pool, pool_size
 
 
 def next_mask_status(ms, pct, th_pt, th_all):
@@ -161,13 +235,17 @@ def next_mask_status(ms, pct, th_pt, th_all):
 def fast_step(world, params, cfg, state: SimState, tables=None):
     """One hour from ``state``; returns ``(new_state, StepOutput)``.
     ``world`` holds tensors on the state's device; ``tables`` are its
-    :func:`make_step_tables`, built here when not given.  Raises
-    NotImplementedError for a world of 16M citizens or more
-    (:func:`~.state.check_formulation`)."""
-    check_formulation(world.n_citizens)
+    :func:`make_step_tables`, built here when not given."""
     d, th = params.disease, params.thresholds
     n = world.n_citizens
     dev = state.status.device
+    fixed_pri = wants_fixed_priority_vax(world, cfg)
+    if fixed_pri and state.vax_pool.shape[0] != n:
+        raise ValueError(
+            "this world and config vaccinate from the fixed-priority pool, "
+            "but the state has no pool: pass fixed_priority_vax="
+            "wants_fixed_priority_vax(world, cfg) to init_state, or set "
+            "SimConfig.vaccination_fixed_priority=False for the fresh draw")
     if tables is None:
         tables = make_step_tables(world)
     f32 = np.float32
@@ -245,16 +323,30 @@ def fast_step(world, params, cfg, state: SimState, tables=None):
                                    f32(th.mask_public_transport),
                                    f32(th.mask_everywhere)))
 
+    vax_pool, vax_pool_size = state.vax_pool, state.vax_pool_size
     if vaccination_started:
-        status, eligible, n_vax = _vaccinate(
-            status, eligible, d.vaccination_rate, threefry.bits(k_vax),
-            tables, cfg.faithful_vaccine_bugs)
+        rate = int(d.vaccination_rate)
+        if fixed_pri:
+            chosen, vax_pool, vax_pool_size = _pool_choice(
+                eligible, rate, k_vax, vax_pool, vax_pool_size, newly_started,
+                tables)
+        else:
+            k = torch.clamp(eligible.sum(dtype=torch.int32), max=rate)
+            chosen = _fresh_choice(eligible, k, threefry.bits(k_vax), tables)
+        new = torch.where(chosen, STATUS_VACCINATED, status)
+        if not cfg.faithful_vaccine_bugs:
+            new = torch.where(chosen & (status != STATUS_SUSCEPTIBLE), status,
+                              new)
+            eligible = eligible & ~chosen
+        status = new
+        n_vax = chosen.sum(dtype=torch.int32)
     else:
         n_vax = torch.zeros((), dtype=torch.int32, device=dev)
 
     new_state = SimState(
         status=status, timer=timer, sched=sched, eligible=eligible,
-        hour=hour, lockdown=lockdown, vaccination_started=vaccination_started,
+        vax_pool=vax_pool, vax_pool_size=vax_pool_size, hour=hour,
+        lockdown=lockdown, vaccination_started=vaccination_started,
         mask_status=ms_next, rng_key=state.rng_key,
     )
     out = StepOutput(

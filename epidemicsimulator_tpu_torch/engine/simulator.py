@@ -26,6 +26,7 @@ from ..runtime import resolve_device
 from ..stats.recorder import StatisticsRecorder, _memory_usage_string
 from ..world.schema import World
 from .checkpoint import load_state, save_state
+from .fastpath import wants_fixed_priority_vax
 from .scan import run
 from .state import SimState, init_state
 
@@ -71,6 +72,7 @@ class Simulator:
         self.world = world.to(self.device)
         self.state: SimState = init_state(
             self.world, seed=seed, starting_infected=self.cfg.starting_infected,
+            fixed_priority_vax=wants_fixed_priority_vax(self.world, self.cfg),
             device=self.device,
         )
         if checkpoint_path is not None and os.path.exists(checkpoint_path):

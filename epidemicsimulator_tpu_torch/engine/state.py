@@ -1,4 +1,5 @@
-"""Simulation state: four per-citizen lanes and a few host scalars.
+"""Simulation state: four per-citizen lanes (five with the fixed-priority
+vaccination pool) and a few host scalars.
 
 The port's counterpart of ``epidemicsimulator_tpu/engine/state.py``.  The
 five schedule bits always travel packed in one int8 ``sched`` lane, the
@@ -6,7 +7,8 @@ representation the citizen kernel reads and writes (``pack_sched`` /
 ``unpack_sched`` convert to and from the JAX package's bool lanes).  The
 scalars the host needs to steer a step (hour, interventions, the key of
 the threefry chain) are Python values, so a step needs no device read to
-choose its branches beyond its one read of the census.
+choose its branches beyond its one read of the census, and a second on
+the hours that vaccinate from the pool.
 """
 
 from __future__ import annotations
@@ -22,24 +24,6 @@ from ..runtime import resolve_device
 
 SCHED_LANES = ("at_work", "on_bus", "bus_to_work", "at_work_ws", "on_bus_ws")
 
-#: From this many citizens on, the JAX package's default step picks
-#: vaccinations from a fixed-priority pool with a threefry stream of its
-#: own (its ``engine/fastpath.py::wants_fixed_priority_vax``); the port has
-#: only the fresh selector that the JAX step runs below it.
-FIXED_PRIORITY_VAX_MIN_CITIZENS = 16_000_000
-
-
-def check_formulation(n_citizens: int) -> None:
-    """Raise NotImplementedError for a world on which the JAX package's
-    default step is a formulation the port does not have, rather than
-    run another one silently."""
-    if n_citizens >= FIXED_PRIORITY_VAX_MIN_CITIZENS:
-        raise NotImplementedError(
-            f"a world of {n_citizens:,} citizens: from "
-            f"{FIXED_PRIORITY_VAX_MIN_CITIZENS:,} on, the JAX package "
-            "vaccinates from the fixed-priority pool, which the port does "
-            "not have yet (ROADMAP.md Queue 1 item 6)")
-
 
 @dataclasses.dataclass(frozen=True)
 class SimState:
@@ -47,6 +31,14 @@ class SimState:
     timer: torch.Tensor       # int32 hours in the current E/I state
     sched: torch.Tensor       # int8, the schedule bits (pack_sched)
     eligible: torch.Tensor    # bool, in the vaccination pool
+    # the fixed-priority vaccination pool (SimConfig.vaccination_fixed_
+    # priority): vax_pool[:vax_pool_size] holds the citizen ids of a
+    # superset of the eligible pool (entries go stale when citizens leave;
+    # draws reject them against the live eligible lane), rebuilt the step
+    # vaccination starts and when the pool halves.  vax_pool is (N,)
+    # int32, or (0,) when the pool is off; vax_pool_size a 0-d int32.
+    vax_pool: torch.Tensor
+    vax_pool_size: torch.Tensor
     hour: int = 0             # 1-based step of the last step taken
     lockdown: bool = False
     vaccination_started: bool = False
@@ -71,13 +63,15 @@ def unpack_sched(sched) -> dict:
 
 def init_state(world, *, seed: int = 0,
                starting_infected: int = STARTING_INFECTED_COUNT,
-               np_seed: int | None = None, device="cuda") -> SimState:
+               np_seed: int | None = None, fixed_priority_vax: bool = False,
+               device="cuda") -> SimState:
     """Initial state with ``starting_infected`` seeded infections: a
     uniform output area, then a uniform citizen in it
     (simulator_builder.rs:1111-1142), drawn on the host with numpy exactly
-    as the JAX package draws them.  Raises NotImplementedError for a
-    world of 16M citizens or more (:func:`check_formulation`)."""
-    check_formulation(world.n_citizens)
+    as the JAX package draws them.  ``fixed_priority_vax`` allocates the
+    fixed-priority pool's lanes: pass
+    ``wants_fixed_priority_vax(world, cfg)``, without which a step that
+    wants the pool (from 16M citizens on, by default) raises."""
     dev = resolve_device(device)
     n = world.n_citizens
     rng = np.random.default_rng(seed if np_seed is None else np_seed)
@@ -101,5 +95,8 @@ def init_state(world, *, seed: int = 0,
         timer=torch.zeros(n, dtype=torch.int32, device=dev),
         sched=torch.zeros(n, dtype=torch.int8, device=dev),
         eligible=torch.zeros(n, dtype=torch.bool, device=dev),
+        vax_pool=torch.zeros(n if fixed_priority_vax else 0,
+                             dtype=torch.int32, device=dev),
+        vax_pool_size=torch.zeros((), dtype=torch.int32, device=dev),
         rng_key=threefry.key(seed),
     )

@@ -50,8 +50,10 @@ def compact_positions(mask, k_slots: int, *, block: int = 1024, offset=0):
 
 def scatter_bits(n_out: int, dest_idx, live):
     """(n_out,) bool lane with ``dest_idx[live]`` set; indices outside
-    [0, n_out) are dropped."""
-    lane = torch.zeros(n_out, dtype=torch.bool, device=dest_idx.device)
-    idx = dest_idx[live].long()
-    lane[idx[(idx >= 0) & (idx < n_out)]] = True
-    return lane
+    [0, n_out) are dropped.  No host sync: the dropped ones are sent to a
+    spare slot past the end."""
+    idx = dest_idx.long()
+    idx = torch.where(live & (idx >= 0) & (idx < n_out), idx, n_out)
+    lane = torch.zeros(n_out + 1, dtype=torch.bool, device=idx.device)
+    lane[idx] = True
+    return lane[:n_out]

@@ -93,6 +93,10 @@ class World:
     def n_riders(self) -> int:
         return int(self.rider_perm.shape[0])
 
+    @property
+    def has_fast_tables(self) -> bool:
+        return self.wpos is not None and self.wpos.shape[0] > 0
+
     def lane_names(self):
         return [
             f.name for f in dataclasses.fields(self)
@@ -151,8 +155,8 @@ class World:
             ("work_oa", 0, self.n_output_areas - 1),
         )
         for name, lo, hi in checks:
-            lane = np.asarray(getattr(self, name))
-            if n and (lane.min() < lo or lane.max() > hi):
+            lane = getattr(self, name)  # numpy, or a tensor on any device
+            if n and (int(lane.min()) < lo or int(lane.max()) > hi):
                 raise ValueError(f"lane {name} outside [{lo}, {hi}]")
 
     def build_index_tables(self) -> "World":

@@ -647,3 +647,63 @@ def test_pipeline_cli_on_card_matches_cpu(cuda, tmp_path, regime):
         assert (out["cuda"] / name).read_bytes() == (out["cpu"] / name).read_bytes(), name
     stats = json.loads((out["cpu"] / "global_stats.json").read_text())
     assert len(stats) > 2 and stats[-2]["infected"] + stats[-2]["recovered"] > 0
+
+
+def test_device_build_on_card_matches_cpu(cuda):
+    """The synthetic world built on the card (sorts, scans and scatters on
+    the device) equals the port's CPU build, every lane bitwise."""
+    from epidemicsimulator_tpu_torch.world.device_build import (
+        generate_synthetic_world_device,
+    )
+
+    on_card = generate_synthetic_world_device(20_000, n_output_areas=64,
+                                              seed=3, device=cuda)
+    on_cpu = generate_synthetic_world_device(20_000, n_output_areas=64,
+                                             seed=3, device="cpu")
+    for name in ("n_buildings", "n_rooms", "n_output_areas",
+                 "max_household_size"):
+        assert getattr(on_card, name) == getattr(on_cpu, name), name
+    assert on_card.lane_names() == on_cpu.lane_names()
+    for name in on_cpu.lane_names():
+        lane = getattr(on_card, name)
+        assert lane.device.type == "cuda", name
+        assert torch.equal(lane.cpu(), getattr(on_cpu, name)), name
+
+
+@pytest.mark.parametrize("regime", ["deterministic", "covid"])
+def test_pool_run_on_card_matches_cpu(cuda, regime):
+    """The fixed-priority vaccination pool with the intended pool
+    semantics (rebuilt when it halves): the card's run equals the CPU's
+    plain run, SEIRV, per-OA series and final lanes, the pool included,
+    bitwise.  Deterministic: 3,000 citizens, 60 steps; covid(): 20,000
+    citizens and 130 infected, 16 steps (the pool built, rebuilt, and the
+    fresh fallback)."""
+    base = et.Params.covid()
+    if regime == "deterministic":
+        params = et.Params(
+            dataclasses.replace(base.disease, exposure_chance=1.0,
+                                exposed_time=6, infected_time=12,
+                                vaccination_rate=25),
+            dataclasses.replace(base.thresholds, lockdown=0.35,
+                                vaccination=0.05, mask_public_transport=2.0,
+                                mask_everywhere=2.0))
+        n, n_oa, seed, infected, steps = 3000, 6, 4, 10, 60
+    else:
+        params, n, n_oa, seed, infected, steps = base, 20_000, 12, 1, 130, 16
+    cfg = et.SimConfig(max_steps=steps, chunk_size=steps,
+                       vaccination_fixed_priority=True,
+                       faithful_vaccine_bugs=False)
+    runs = []
+    for device in (cuda, "cpu"):
+        world = et.generate_synthetic_world(n, n_output_areas=n_oa,
+                                            seed=seed).to(device)
+        state = et.init_state(world, seed=0, starting_infected=infected,
+                              fixed_priority_vax=True, device=device)
+        state, out = et.make_chunk_runner(world, cfg)(params, state)
+        runs.append([state.status.cpu(), state.sched.cpu(),
+                     state.eligible.cpu(), state.vax_pool.cpu(),
+                     state.vax_pool_size.cpu(), out.seirv.cpu(),
+                     out.exposures_per_oa.cpu(), out.n_vaccinated_now.cpu()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert int(runs[1][-1].sum()) > 0 and runs[1][3].shape == (n,)

@@ -328,28 +328,33 @@ def test_entry_points_refuse_a_missing_card():
 @pytest.mark.parametrize("n", [15_999_999, 16_000_000, 63_000_000])
 def test_port_refuses_the_fixed_priority_formulation(n):
     """From 16M citizens on, the JAX package's default step vaccinates from
-    the fixed-priority pool, which the port lacks: init_state and fast_step
-    raise there, on stand-in worlds (no 16M world is built), and only
-    there."""
+    the fixed-priority pool: the port's wants_fixed_priority_vax resolves
+    as the JAX one on stand-in worlds (no 16M world is built), for every
+    setting of SimConfig.vaccination_fixed_priority and with and without
+    the fast tables, and init_state allocates the pool's lanes exactly
+    when the JAX init_state does."""
     from epidemicsimulator_tpu import SimConfig as JSimConfig
     from epidemicsimulator_tpu.engine.fastpath import wants_fixed_priority_vax
 
     from epidemicsimulator_tpu_torch.engine import fastpath as t_fastpath
 
-    world = types.SimpleNamespace(n_citizens=n, has_fast_tables=True)
-    jax_switches = wants_fixed_priority_vax(world, JSimConfig())
-    assert jax_switches == (n >= t_state.FIXED_PRIORITY_VAX_MIN_CITIZENS)
-    calls = (lambda: t_state.check_formulation(n),
-             lambda: et.init_state(world, device="cpu"),
-             lambda: t_fastpath.fast_step(world, et.Params.covid(),
-                                          et.SimConfig(), None))
-    for call in calls:
-        if jax_switches:
-            with pytest.raises(NotImplementedError,
-                               match="fixed-priority pool.*Queue 1 item 6"):
-                call()
-    if not jax_switches:
-        t_state.check_formulation(n)
-        # past the guard, the stand-in world has no lanes to read
-        with pytest.raises(AttributeError):
-            et.init_state(world, device="cpu")
+    for fast in (True, False):
+        world = types.SimpleNamespace(n_citizens=n, has_fast_tables=fast)
+        for setting in (None, True, False):
+            want = wants_fixed_priority_vax(
+                world, JSimConfig(vaccination_fixed_priority=setting))
+            got = t_fastpath.wants_fixed_priority_vax(
+                world, et.SimConfig(vaccination_fixed_priority=setting))
+            assert got == want, (fast, setting)
+            if setting is None:
+                assert want == (fast and n >= 16_000_000)
+    flag = t_fastpath.wants_fixed_priority_vax(
+        types.SimpleNamespace(n_citizens=n, has_fast_tables=True), et.SimConfig())
+    jw = j_world(500, n_output_areas=2, seed=0)
+    tw = et.generate_synthetic_world(500, n_output_areas=2, seed=0)
+    js = j_state.init_state(jw, seed=0, fixed_priority_vax=flag)
+    ts = et.init_state(tw, seed=0, fixed_priority_vax=flag, device="cpu")
+    assert ts.vax_pool.shape == np.asarray(js.vax_pool).shape == ((500,) if flag else (0,))
+    assert ts.vax_pool.dtype == torch.int32 and np.asarray(js.vax_pool).dtype == np.int32
+    np.testing.assert_array_equal(ts.vax_pool.numpy(), np.asarray(js.vax_pool))
+    assert ts.vax_pool_size.shape == () and int(ts.vax_pool_size) == int(js.vax_pool_size) == 0

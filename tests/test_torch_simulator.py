@@ -18,6 +18,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from epidemicsimulator_tpu import Params as JParams
 from epidemicsimulator_tpu import SimConfig as JSimConfig
@@ -285,22 +286,40 @@ def test_port_checkpoint_resume_equals_straight_run(worlds, tmp_path):
 
 
 def test_checkpoint_with_vax_pool_is_refused(tmp_path):
-    """A JAX state that carries the fixed-priority pool is a formulation
-    the port does not have."""
+    """A state that carries the fixed-priority pool makes the round trip:
+    a JAX-layout file with a pool loads into the port with that pool, the
+    port writes it back unchanged, and the JAX package reads the port's
+    file with the same pool; a file whose pool is off loads with a (0,)
+    pool."""
     path = str(tmp_path / "ckpt.npz")
     arrays = {name: np.zeros(4, bool) for name in SCHED}
     arrays.update(status=np.zeros(4, np.int8), timer=np.zeros(4, np.int32),
-                  eligible=np.zeros(4, bool), hour=np.int32(3),
-                  lockdown=np.bool_(False), vaccination_started=np.bool_(True),
-                  mask_status=np.int8(0), rng_key_data=np.zeros(2, np.uint32),
-                  vax_pool=np.arange(4, dtype=np.int32))
-    np.savez(path, **arrays)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        t_checkpoint.load_state(path, device="cpu")
-    arrays["vax_pool"] = np.zeros(0, np.int32)
+                  eligible=np.array([True, False, True, True]),
+                  hour=np.int32(3), lockdown=np.bool_(False),
+                  vaccination_started=np.bool_(True), mask_status=np.int8(0),
+                  rng_key_data=np.zeros(2, np.uint32),
+                  vax_pool=np.array([0, 2, 3, 1], np.int32),
+                  vax_pool_size=np.int32(3))
     np.savez(path, **arrays)
     state, rows = t_checkpoint.load_state(path, device="cpu")
     assert state.hour == 3 and state.vaccination_started and rows is None
+    assert state.vax_pool.dtype == torch.int32 and state.vax_pool_size.shape == ()
+    np.testing.assert_array_equal(state.vax_pool.numpy(), arrays["vax_pool"])
+    assert int(state.vax_pool_size) == 3
+    back = str(tmp_path / "back.npz")
+    t_checkpoint.save_state(back, state)
+    with np.load(back) as z:
+        np.testing.assert_array_equal(z["vax_pool"], arrays["vax_pool"])
+        assert z["vax_pool"].dtype == np.int32
+        assert z["vax_pool_size"].dtype == np.int32 and int(z["vax_pool_size"]) == 3
+    j_state, _ = j_checkpoint.load_state(back)
+    np.testing.assert_array_equal(np.asarray(j_state.vax_pool), arrays["vax_pool"])
+    assert int(j_state.vax_pool_size) == 3
+    arrays["vax_pool"] = np.zeros(0, np.int32)
+    del arrays["vax_pool_size"]
+    np.savez(path, **arrays)
+    state, _ = t_checkpoint.load_state(path, device="cpu")
+    assert state.vax_pool.shape == (0,) and int(state.vax_pool_size) == 0
 
 
 # (f) ---------------------------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a step of the PyTorch port spends its time on the card.
 
-    python3 tools/profile_torch_step.py [--world yh|york|ensemble64]
+    python3 tools/profile_torch_step.py [--world yh|york|ensemble64|uk]
         [--steps 500] [--profile-from 250] [--table FILE]
 
 Runs a cell step by step on one CUDA card, timing each step on the host
@@ -13,10 +13,14 @@ infected, sim seed 0, Params.covid_v16()); ``ensemble64``: the packed
 ensemble of ``tools/run_torch_ensemble.py`` (64 replicas of the
 208,000-citizen synthetic world, 13,631,488 lanes, its sweep, 10
 infected each), stepped by ``engine/packed.py::packed_step`` (a regime
-holds a step when any replica is in it).  Prints per-regime step times,
-the device's busy and idle share over the traced window and the device
-time by kernel: the top 20, then every kernel of ``csrc/`` and the
-memsets.  ``--table`` writes the profiler's full table to FILE.
+holds a step when any replica is in it); ``uk``: the full UK of
+``tools/run_torch_full_uk.py`` (63,000,000 citizens, 227,759 OAs, built
+on the card, seed 0, 360,000 infected, Params.covid(), the
+fixed-priority vaccination pool).  Prints per-regime step times, the
+device's busy and idle share over the traced window and the device time
+by kernel: the top 20, then every kernel of ``csrc/`` and the memsets,
+then the running scans (``cummax``/``cummin``, the bus side's) per call.
+``--table`` writes the profiler's full table to FILE.
 """
 
 import argparse
@@ -33,6 +37,9 @@ sys.path.insert(0, ROOT)
 #: its own)
 PORT_KERNELS = ("citizen_tile", "runs_reduce", "runs_apply",
                 "cumsum_lookback", "Memset")
+#: torch's running max/min kernels (``cummax``/``cummin``, whose CUDA
+#: kernels are the scans "with indices"): the bus side's one-row scans
+SCAN_KERNELS = ("cummax", "cummin", "with_indices")
 
 
 def make_cell(et, name):
@@ -42,12 +49,8 @@ def make_cell(et, name):
 
     cfg = et.SimConfig()
     if name == "ensemble64":
-        import importlib.util
+        import run_torch_ensemble as tool
 
-        spec = importlib.util.spec_from_file_location(
-            "run_torch_ensemble", os.path.join(ROOT, "tools", "run_torch_ensemble.py"))
-        tool = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(tool)
         plist, pe, _ = tool.pack(et, 64)
         tables = packed.make_packed_tables(pe)
         th = plist[0].thresholds
@@ -66,13 +69,19 @@ def make_world_cell(et, name):
                                             seed=0).to("cuda")
         return world, et.init_state(world, seed=0, starting_infected=20_000), \
             et.Params.covid()
+    if name == "uk":
+        import run_torch_full_uk as tool
+
+        world = tool.build(et)[0]
+        return world, tool.start(et, world, et.SimConfig()), et.Params.covid()
     world = et.generate_census_like_world(197_603, 637, seed=42).to("cuda")
     return world, et.init_state(world, seed=0), et.Params.covid_v16()
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--world", choices=("yh", "york", "ensemble64"), default="yh")
+    ap.add_argument("--world", choices=("yh", "york", "ensemble64", "uk"),
+                    default="yh")
     ap.add_argument("--steps", type=int, default=500)
     ap.add_argument("--profile-from", type=int, default=250)
     ap.add_argument("--table")
@@ -140,6 +149,10 @@ def main():
     for us, count, key in rows:
         if any(part in key for part in PORT_KERNELS):
             print(f"  {us / 1e3 / n_traced:8.4f} {count / n_traced:8.2f}  {key[:90]}")
+    print("running scans (device ms per call, calls/step, name):")
+    for us, count, key in rows:
+        if any(part in key.lower() for part in SCAN_KERNELS):
+            print(f"  {us / 1e3 / count:8.4f} {count / n_traced:8.2f}  {key[:90]}")
     if args.table:
         os.makedirs(os.path.dirname(os.path.abspath(args.table)), exist_ok=True)
         with open(args.table, "w") as f:
