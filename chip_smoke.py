@@ -93,7 +93,24 @@ Phases, each printing its elapsed seconds:
    (d) the same run on the device-built world of 16,000,000 citizens and
    57,843 OAs (seed 0), chunk 24, whose rows after steps 24 and 48 must
    equal those of the port's and the JAX package's CPU runs
-   (:data:`UK16_ROWS`).
+   (:data:`UK16_ROWS`);
+12. the population-sharded engine, with ``tools/run_torch_sharded.py``,
+   four ranks sharing the one card (``parallel/launch.py`` starts ranks
+   1-3; gloo with the operands staged in host memory; ms/step from such
+   a run is not a multi-card figure): (a) B1's ``gid0`` mode against its
+   plain version on the Y&H lanes with gid0 = 0, 864,286 and 2**31 - 7,
+   in the one-world mode (with q, as phase 2 holds it, and the lanes and
+   census bitwise) and in the ensemble mode on phase 9's 64 packed
+   replicas (lanes and census bitwise), timed beside its bound; (b) the
+   Y&H world of phase 1, seed 0, 20,000 infected, ``covid()``, chunk
+   250: without transport, 250 steps on 4 ranks equal to the one-card
+   run, row for row; with transport, 500 steps on 4 ranks whose rows
+   after steps 250 and 500 must equal :data:`YH4_ROWS`, every row summing
+   to N, with ms/step by chunk, the launches summed over the ranks (the
+   counts set to 0 just before) and the comm backend printed; (c) cell
+   (e)'s 64 York-scale replicas over 4 ranks (``run_ensemble(devices=
+   4)``), 250 steps, equal to phase 9's one-card packing run under
+   id-keyed bus streams, bitwise.
 
 Each kernel's record names the path it runs on; its ``launches`` are
 the count from that path's run, ``main_path_launches`` the count from
@@ -101,8 +118,14 @@ the main path's (0 for B4 and B5), ``york_launches`` the count from
 phase 7's CLI run, ``pipeline_launches`` the count from phase 8's,
 ``ensemble_launches`` the count from phase 9's 1,000 steps,
 ``calibration_launches`` the count from phase 10's, ``uk_launches`` the
-count from phase 11's 500 steps at 63M.  B1's
-ensemble mode has a record of its own, ``citizen_phase_ensemble``.  The
+count from phase 11's 500 steps at 63M, ``sharded_launches`` the count
+from phase 12's 500 steps on 4 ranks with transport (summed over the
+ranks) and ``sharded_ensemble_launches`` the count from phase 12 (c).
+B1's ensemble mode has a record of its own, ``citizen_phase_ensemble``,
+and so has its ``gid0`` mode, ``citizen_phase_gid0``: B1's launches on
+phase 12's paths (both modes; each rank passes its shard's first global
+id, 0 on rank 0) count in that record alone, and its one-card counts are
+0, so that no launch is counted in two records.  The
 last two lines are the card's name and power limit and ``{"ok": true,
 "device": {...}}``.  Any failure exits non-zero, and so does a machine
 with no CUDA device.  Imports nothing of JAX.
@@ -129,6 +152,17 @@ SEIRV_KEYS = ("susceptible", "exposed", "infected", "recovered", "vaccinated")
 #: as the port and the JAX package computed them on the CPU
 UK16_ROWS = {24: [15597094, 11759, 355998, 0, 35149],
              48: [15548977, 23282, 355998, 0, 71743]}
+#: phase 12 (b): the SEIRV rows after steps 250 and 500 of the Y&H world
+#: with transport on 4 ranks, as the JAX package's ``run_fast_sharded``
+#: computed them on a 4-device CPU mesh in its fused formulation, the
+#: port's (``tools/ref_jax_yh4_sharded.py``,
+#: ``sample_results/yh4_sharded_cpu_jax/``); the port's 4 gloo ranks on
+#: the CPU give them too (``tools/run_torch_sharded.py --device cpu``).
+#: Step 250 is the one-card row (the lockdown keeps everyone off the
+#: buses until then); step 500 differs from it, the bus keys being per
+#: rank.
+YH4_ROWS = {250: [3070400, 2381, 23599, 0, 360762],
+            500: [2741356, 2281, 7279, 21405, 684821]}
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_INT32_OPS_PER_S = 33.5e12  # non-tensor INT32, H100 SXM data sheet
 T0 = time.perf_counter()
@@ -697,8 +731,8 @@ def pipeline_path(et, card):
 def ensemble_path(et, card):
     """Phase 9: B1's ensemble mode at full width, a small packed run
     against the CPU, then 1,000 steps of 64 York-scale replicas.  Returns
-    the ensemble mode's record and the launch counts of the 1,000
-    steps."""
+    the ensemble mode's record, the launch counts of the 1,000 steps and
+    the sweep with its packing (for phase 12)."""
     import numpy as np
     import torch
 
@@ -796,7 +830,7 @@ def ensemble_path(et, card):
         raise AssertionError("a kernel off the ensemble path ran in it")
     rec["launches"] = counts["citizen_phase_ensemble"]
     say(f"phase 9 took {time.perf_counter() - t_phase:.2f}s")
-    return rec, counts
+    return rec, counts, (plist, pe)
 
 
 def calibrate_path(et, card, tmp):
@@ -1014,6 +1048,171 @@ def full_uk_path(et, world_dev, card):
     return counts
 
 
+def hold_gid0(world_dev, pe, rng):
+    """Phase 12 (a): B1's gid0 mode against its plain version, in the
+    one-world mode on the Y&H lanes and in the ensemble mode on the 64
+    packed replicas.  Returns its record (launches filled in later)."""
+    import numpy as np
+    import torch
+
+    from epidemicsimulator_tpu_torch import runtime
+    from epidemicsimulator_tpu_torch.ops import citizen
+
+    n = world_dev.n_citizens
+    dev = world_dev.work_perm.device
+    statics = citizen.make_citizen_statics(world_dev)
+    status = torch.from_numpy(rng.choice(
+        5, n, p=[0.80, 0.05, 0.05, 0.05, 0.05]).astype(np.int8)).to(dev)
+    timer = torch.from_numpy(rng.integers(0, 400, n).astype(np.int32)).to(dev)
+    sched = torch.from_numpy(rng.integers(0, 32, n).astype(np.int8)).to(dev)
+    f32 = np.float32
+    gid0s = (0, 864_286, 2**31 - 7)
+    kw = dict(h24=20, move=True, mask_status=1, exposed_time=96,
+              infected_time=336, exposure_chance=f32(0.05),
+              mask_scale=f32(1.0) - f32(0.7), K=world_dev.max_household_size,
+              ref_mask_sem=False, u8_trunc=True)
+    worst_ulp, max_err, hits = 0, 0.0, []
+    for gid0 in gid0s:
+        kw.update(seed=int(rng.integers(0, 2**32)), gid0=gid0)
+        ulp, err, flips, _ = hold_citizen_phase(statics, status, timer,
+                                                sched, kw)
+        if flips:
+            raise AssertionError(f"citizen_phase, gid0 = {gid0}: {flips} "
+                                 "home hits differ from its plain version")
+        worst_ulp, max_err = max(worst_ulp, ulp), max(max_err, err)
+        hits.append(int(citizen.citizen_phase(statics, status, timer, sched,
+                                              **kw)[4][7]))
+    say(f"B1 gid0 mode, one world, N = {n:,}, gid0 = {gid0s}: lanes and "
+        f"census bitwise equal to its plain version (q within {worst_ulp} "
+        f"ulp); home hits {hits}")
+    t_b, by = bound(n * (1 + 4 + 1 + 5 + 1 + 4 + 1 + 1), 150 * n)
+    rec = dict(
+        name="citizen_phase_gid0", route="cuda",
+        source="epidemicsimulator_tpu_torch/csrc/citizen.cu",
+        replaces="epidemicsimulator_tpu/ops/pallas_citizen.py:367",
+        path="sharded", max_abs_err=max_err,
+        ms=runtime.cuda_ms(lambda: citizen.citizen_phase(
+            statics, status, timer, sched, **kw)),
+        plain_ms=runtime.cuda_ms(lambda: citizen.citizen_phase_plain(
+            statics, status, timer, sched, **kw)),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        **device_record(lambda: citizen.citizen_phase(statics, status, timer,
+                                                      sched, **kw)),
+    )
+    del status, timer, sched, statics
+
+    # the ensemble mode on the 64 packed replicas
+    world = pe.world
+    n, R = world.n_citizens, pe.n_replicas
+    status = rng.choice(5, n, p=[0.80, 0.05, 0.05, 0.05, 0.05]).astype(np.int8)
+    status[np.tile(np.arange(pe.rep_stride) >= pe.rep_size, R)] = 5
+    status = torch.from_numpy(status).to(dev)
+    timer = torch.from_numpy(rng.integers(0, 400, n).astype(np.int32)).to(dev)
+    sched = torch.from_numpy(rng.integers(0, 32, n).astype(np.int8)).to(dev)
+    rep_ints = torch.from_numpy(np.stack(
+        [rng.random(R) < 0.8, np.arange(R) % 3, pe.exposed_time,
+         pe.infected_time], 1).astype(np.int32)).to(dev)
+    rep_f32s = torch.from_numpy(np.stack(
+        [pe.chance, f32(1.0) - pe.mask_effectiveness], 1)).to(dev)
+    statics = citizen.make_citizen_statics(world)
+    for gid0 in gid0s:
+        kw = dict(h24=20, seed=int(rng.integers(0, 2**32)), gid0=gid0,
+                  K=world.max_household_size, ref_mask_sem=True,
+                  u8_trunc=True, rep_ints=rep_ints, rep_f32s=rep_f32s,
+                  tiles_per_rep=pe.rep_stride // citizen.CITIZEN_TILE)
+        got = citizen.citizen_phase(statics, status, timer, sched, **kw)
+        want = citizen.citizen_phase_plain(statics, status, timer, sched, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"citizen_phase's ensemble mode, gid0 = "
+                                 f"{gid0}, disagrees with its plain version")
+    say(f"B1 gid0 mode, ensemble of {R} on {n:,} lanes, gid0 = {gid0s}: "
+        f"lanes and the ({R}, 8) census bitwise equal to its plain version")
+    del got, want, status, timer, sched, statics
+    return rec
+
+
+def sharded_path(et, world, world_dev, ensemble, card):
+    """Phase 12: the population-sharded engine on 4 ranks sharing the
+    card.  Returns the gid0 record, the launch counts of the 500 steps
+    with transport and those of the sharded ensemble."""
+    import numpy as np
+    import torch
+
+    from epidemicsimulator_tpu_torch import runtime
+    from epidemicsimulator_tpu_torch.engine import packed
+    from epidemicsimulator_tpu_torch.engine.ensemble import stack_params
+
+    tool = load_tool("run_torch_sharded")
+    t_phase = time.perf_counter()
+    plist, pe = ensemble
+    rec = hold_gid0(world_dev, pe, np.random.default_rng(12))
+    torch.cuda.synchronize()
+
+    # (b) the Y&H world on 4 ranks: transport-free against one card, then
+    # with transport against YH4_ROWS
+    n = world.n_citizens
+    world_tf = tool.strip_transport(world)
+    one = tool.single_card(et, world_tf, CHUNK, CHUNK)
+    tf = tool.sharded(et, world_tf, 4, CHUNK, CHUNK)
+    if not np.array_equal(tf["seirv"], one):
+        raise AssertionError("4 ranks without transport differ from one card")
+    say(f"Y&H without transport, {CHUNK} steps: 4 ranks ({tf['comm']}) equal "
+        f"the one-card run row for row; SEIRV after step {CHUNK} "
+        f"{one[-1].tolist()}; {tf['chunk_ms'][0]:.3f} ms/step (with the "
+        f"ranks' start) on {card}, ranks sharing it")
+    tr = tool.sharded(et, world, 4, 2 * CHUNK, CHUNK)
+    counts = tr["launches"]
+    rows = {CHUNK: tr["seirv"][CHUNK - 1].tolist(),
+            2 * CHUNK: tr["seirv"][2 * CHUNK - 1].tolist()}
+    say(f"Y&H with transport, 4 ranks ({tr['comm']}), S = "
+        f"{tr['shard_size']:,}, {tr['n_slots']:,} work slots, {tr['n_ghost']} "
+        f"ghosts per rank pair at most: SEIRV after steps {CHUNK} and "
+        f"{2 * CHUNK} {rows[CHUNK]}, {rows[2 * CHUNK]}; the JAX package's CPU "
+        f"{YH4_ROWS}; every row sums to {n:,}")
+    say(f"  ms/step by chunk of {CHUNK} on {card}, 4 ranks sharing it (not "
+        "a multi-card figure; the first with the ranks' start): "
+        + " ".join(f"{ms:.3f}" for ms in tr["chunk_ms"])
+        + f"; {tr['total_s']:.2f} s in all; launches summed over the ranks: "
+        f"{counts}")
+    if rows != YH4_ROWS:
+        raise AssertionError("the 4-rank Y&H run differs from YH4_ROWS, "
+                             "the JAX package's CPU rows")
+    if not all(counts[name] for name in runtime.MAIN_PATH_KERNELS):
+        raise AssertionError("a kernel of the main path was never launched "
+                             "by the 4 ranks")
+    if any(v for name, v in counts.items()
+           if name not in runtime.MAIN_PATH_KERNELS):
+        raise AssertionError("a kernel off the main path ran on the 4 ranks")
+    if counts["citizen_phase"] != 4 * 2 * CHUNK:
+        raise AssertionError("B1 did not run once per step on every rank")
+
+    # (c) cell (e)'s 64 replicas over 4 ranks against one card
+    cfg = et.SimConfig(max_steps=CHUNK, chunk_size=CHUNK, starting_infected=10,
+                       id_keyed_ensemble_rng=True)
+    state = packed.init_packed_state(pe, seed=0, starting_infected=10)
+    _, seirv = packed.make_packed_runner(pe, cfg)(
+        stack_params(plist).thresholds, state)
+    one = np.transpose(seirv.cpu().numpy(), (1, 0, 2))
+    ens_tool = load_tool("run_torch_ensemble")
+    base = et.generate_synthetic_world(ens_tool.N_CITIZENS,
+                                       n_output_areas=ens_tool.N_OAS, seed=0)
+    got, ens_counts, ens_s = tool.ensemble(et, base, plist, 4, CHUNK, CHUNK)
+    if not np.array_equal(got, one):
+        raise AssertionError("64 replicas over 4 ranks differ from the "
+                             "one-card packing")
+    say(f"64 replicas over 4 ranks, {CHUNK} steps: bitwise the one-card "
+        f"packing under id-keyed bus streams, in {ens_s:.2f}s (packing on "
+        f"each rank included); launches summed over the ranks {ens_counts}")
+    if not all(ens_counts[name] for name in runtime.ENSEMBLE_PATH_KERNELS):
+        raise AssertionError("a kernel of the ensemble path was never "
+                             "launched by the 4 ranks")
+    rec["launches"] = counts["citizen_phase"]
+    rec["counted"] = ("B1 over the 4 ranks of the Y&H run with transport, "
+                      "gid0 = each rank's shard start (0 on rank 0)")
+    say(f"phase 12 took {time.perf_counter() - t_phase:.2f}s")
+    return rec, counts, ens_counts
+
+
 def main():
     import torch
 
@@ -1060,17 +1259,33 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         york_counts = simulator_path(et, smi, tmp)
         pipeline_counts = pipeline_path(et, smi)
-        ens_rec, ens_counts = ensemble_path(et, smi)
+        ens_rec, ens_counts, ensemble = ensemble_path(et, smi)
         ens_rec["main_path_launches"] = counts[ens_rec["name"]]
         records.append(ens_rec)
         calibration_counts = calibrate_path(et, smi, tmp)
     uk_counts = full_uk_path(et, world_dev, smi)
+    gid0_rec, sharded_counts, sharded_ens_counts = sharded_path(
+        et, world, world_dev, ensemble, smi)
+    gid0_rec["main_path_launches"] = 0
+    records.append(gid0_rec)
+    one_card = dict(york_launches=york_counts,
+                    pipeline_launches=pipeline_counts,
+                    ensemble_launches=ens_counts,
+                    calibration_launches=calibration_counts,
+                    uk_launches=uk_counts)
     for rec in records:
-        rec["york_launches"] = york_counts[rec["name"]]
-        rec["pipeline_launches"] = pipeline_counts[rec["name"]]
-        rec["ensemble_launches"] = ens_counts[rec["name"]]
-        rec["calibration_launches"] = calibration_counts[rec["name"]]
-        rec["uk_launches"] = uk_counts[rec["name"]]
+        name = rec["name"]
+        for key, c in one_card.items():
+            rec[key] = 0 if name == "citizen_phase_gid0" else c[name]
+        if name == "citizen_phase_gid0":
+            rec["sharded_launches"] = sharded_counts["citizen_phase"]
+            rec["sharded_ensemble_launches"] = sharded_ens_counts[
+                "citizen_phase_ensemble"]
+        else:  # phase 12's B1 launches count in the gid0 record alone
+            b1 = name in ("citizen_phase", "citizen_phase_ensemble")
+            rec["sharded_launches"] = 0 if b1 else sharded_counts[name]
+            rec["sharded_ensemble_launches"] = (
+                0 if b1 else sharded_ens_counts[name])
 
     print(json.dumps({"kernels": records}))
     print(smi)

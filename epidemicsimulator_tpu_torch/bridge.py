@@ -58,8 +58,13 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray], device="cuda") -> SimSta
     if "sched" in arrays and np.size(arrays["sched"]):
         sched = t("sched").to(torch.int8)
     else:
-        sched = pack_sched(*(t(name) for name in (
-            "at_work", "on_bus", "bus_to_work", "at_work_ws", "on_bus_ws")))
+        # (0,)-shaped work-order twin lanes (a sharded state) pack as 0
+        n = np.shape(arrays["status"])[0]
+        sched = pack_sched(*(
+            t(name) if np.shape(arrays[name])[0] == n
+            else torch.zeros(n, dtype=torch.bool, device=dev)
+            for name in ("at_work", "on_bus", "bus_to_work", "at_work_ws",
+                         "on_bus_ws")))
     key = np.asarray(arrays["rng_key"], np.uint32)
     return SimState(
         status=t("status").to(torch.int8),

@@ -30,9 +30,11 @@ ensembles on the same device (calibrate.py) and writes the result's JSON
 to ``--output-name`` (default ``<area>_calibration.json``).  The world cache, its
 geometry sidecar, the OSM parse cache ``<pbf>.parsed.npz`` and
 ``<world cache>.build_timings.json`` have the JAX package's names and
-layout.  The downloads compute nothing on a device and run without a
+layout.  ``--devices N`` runs the population-sharded engine over N ranks
+(0: one per visible card; with ``--device cpu``, N gloo processes on the
+CPU).  The downloads compute nothing on a device and run without a
 card.  Not offered yet: ``--render`` and ``--visualise*`` (ROADMAP.md
-Queue 1) and ``--devices`` (Queue 1 item 8).
+Queue 1).
 """
 
 from __future__ import annotations
@@ -83,6 +85,11 @@ def make_parser() -> argparse.ArgumentParser:
                    help="lo,hi bracket for the calibrated parameter")
     p.add_argument("--calibrate-replicates", type=int, default=16)
     p.add_argument("--calibrate-rounds", type=int, default=2)
+    p.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="run the population-sharded engine over N ranks "
+                   "(0 = one per visible card; default: the one-device "
+                   "fast path), the analog of the reference CLI's parallel "
+                   "engine, run/src/main.rs:64-67")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="steps between state snapshots (0 = off)")
     p.add_argument("--pbf", default=None, help="OSM .pbf extract path")
@@ -299,11 +306,12 @@ def main(argv=None) -> int:
             checkpoint_path=ckpt,
             checkpoint_every_chunks=max(1, args.checkpoint_every // cfg.chunk_size)
             if args.checkpoint_every else 0,
-            device=args.device,
+            devices=args.devices, device=args.device,
         )
         phases["sim_init_s"] = round(time.perf_counter() - t0, 2)
         t0 = time.perf_counter()
-        sim.simulate(out_dir + os.sep)
+        if sim.simulate(out_dir + os.sep) is None:
+            return 0  # a rank other than 0 under torchrun writes nothing
         phases["simulate_s"] = round(time.perf_counter() - t0, 2)
         phases["simulate_loop"] = {
             k: round(v, 2) for k, v in sim.last_timing.items()

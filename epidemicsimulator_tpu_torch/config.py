@@ -164,3 +164,39 @@ class SimConfig:
     #: lanes; the step raises without them.  None = auto: on for worlds with >= 16M citizens, as in the
     #: JAX package (``engine/fastpath.py::wants_fixed_priority_vax``).
     vaccination_fixed_priority: bool | None = None
+    #: The population-sharded engine's vaccination selector
+    #: (``parallel/fastmesh.py``, ``ops/select.py::kth_threshold_sharded``):
+    #: None = auto (the sampled band for shards of 2**22 citizens or more,
+    #: else the bisection with its count summed over the ranks); True or
+    #: False forces one.  Both give the same exact threshold.
+    use_sampled_vax_sharded: bool | None = None
+    #: log2 of each rank's sample for the sampled band
+    vax_sharded_sample_log2: int = 17
+    #: Options of the JAX package that are off by default and not ported
+    #: (the sharded engine's sortless branches, the sparse work-back and
+    #: the ``debug_*`` probes, which also reach its one-device step):
+    #: setting one makes this config raise NotImplementedError, so no run
+    #: of any engine ignores it.
+    use_sortless_sharded: bool | None = None
+    use_sparse_workback: bool | None = None
+    debug_shard_parts: int = -1
+    debug_force_gates: tuple | None = None
+    debug_bus_hit_slots: int | None = None
+
+    def __post_init__(self):
+        for name, off in NOT_PORTED.items():
+            if getattr(self, name) not in off:
+                raise NotImplementedError(
+                    f"SimConfig.{name}={getattr(self, name)!r}: this option "
+                    "of the JAX package is not ported")
+
+
+#: the JAX package's options that the port does not carry, with the values
+#: that mean "off"
+NOT_PORTED = {
+    "use_sortless_sharded": (None, False),
+    "use_sparse_workback": (None, False),
+    "debug_shard_parts": (-1, 0),
+    "debug_force_gates": (None,),
+    "debug_bus_hit_slots": (None,),
+}

@@ -53,7 +53,10 @@
 //
 // Built without fast math; products are written with __fmul_rn so that
 // no multiply-add is contracted.  The hash index is the global citizen
-// id.
+// id: gid0 + lane, wrapping as u32, where gid0 is the global id of lane 0
+// (0 for one world on one card; a shard's or a rank's first id in the
+// sharded engines, parallel/fastmesh.py and parallel/ensemble_mesh.py).
+// The census and the lanes' bounds stay on the local lane.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,7 +76,7 @@ constexpr unsigned FULL = 0xffffffffu;
 
 struct Step {
   int h24, move, mask_status, e_time, i_time, ref_mask_sem, u8_trunc;
-  unsigned seed;
+  unsigned seed, gid0;
   float p0, mask_scale;
 };
 
@@ -304,8 +307,9 @@ citizen_tile(Lanes in, Outs out, long long n, Step s, bool aligned,
     q[e] = __float_as_int(qe);
 
     const bool valid = i0 + e < n;
-    const bool hit = valid && ((gates >> 1) & 1) &&
-                     hash_uniform(s.seed, (unsigned)(i0 + e)) < qe;
+    const bool hit =
+        valid && ((gates >> 1) & 1) &&
+        hash_uniform(s.seed, s.gid0 + (unsigned)(i0 + e)) < qe;
     const int sh = 8 * (e & 3);
     if (hit) {
       ST[e >> 2] = (ST[e >> 2] & ~(0xFFu << sh)) | (1u << sh);
@@ -379,6 +383,8 @@ citizen_tile(Lanes in, Outs out, long long n, Step s, bool aligned,
 // share it must run in stream order.  Outputs must be 16-byte aligned;
 // the input lanes may have any alignment.
 //
+// gid0 offsets the home draw's hash index, in both modes.
+//
 // Ensemble mode: rep_ints (n_reps x 4 int32) and rep_f32s (n_reps x 2
 // float) on the device, n = n_reps * tiles_per_rep * 2,048, and
 // rep_totals receives n_reps x 8 ints; move, mask_status, e_time,
@@ -390,8 +396,8 @@ extern "C" int es_citizen_phase(
     void* status_out, void* timer_out, void* sched_out, void* gates_out,
     void* totals, void* partials, long long partials_bytes, void* ticket,
     void* q_out, long long n, int h24, int move, int mask_status,
-    unsigned seed, int e_time, int i_time, float p0, float mask_scale,
-    int ref_mask_sem, int u8_trunc, const void* rep_ints,
+    unsigned seed, unsigned gid0, int e_time, int i_time, float p0,
+    float mask_scale, int ref_mask_sem, int u8_trunc, const void* rep_ints,
     const void* rep_f32s, int tiles_per_rep, int n_reps, void* rep_totals,
     void* stream) {
   const long long blocks = (n + TILE_ELEMS - 1) / TILE_ELEMS;
@@ -411,7 +417,7 @@ extern "C" int es_citizen_phase(
                         (uintptr_t)sd | (uintptr_t)se | (uintptr_t)status |
                         (uintptr_t)timer | (uintptr_t)sched;
   Step s{h24, move, mask_status, e_time, i_time, ref_mask_sem, u8_trunc,
-         seed, p0, mask_scale};
+         seed, gid0, p0, mask_scale};
   Lanes in{(const int8_t*)sa, (const int8_t*)sb, (const int8_t*)sc,
            (const int8_t*)sd, (const int8_t*)se, (const int8_t*)status,
            (const int32_t*)timer, (const int8_t*)sched};

@@ -4,7 +4,10 @@ The JAX package's npz layout (its ``engine/checkpoint.py``), key for key,
 so that a checkpoint written by either package resumes in the other:
 
 * the per-citizen lanes ``status``, ``timer`` and ``eligible``, and the
-  five schedule bool lanes unpacked from ``sched``;
+  five schedule bool lanes unpacked from ``sched`` (a sharded state, in
+  its padded shard layout, has no work-order twin: its ``at_work_ws``
+  and ``on_bus_ws`` are (0,), as the JAX package's sharded state has
+  them);
 * the scalars ``hour``, ``lockdown``, ``vaccination_started`` and
   ``mask_status``;
 * ``rng_key_data``, the threefry key as uint32[2];
@@ -36,12 +39,18 @@ _JAX_ONLY = {
 }
 
 
-def save_state(path: str, state: SimState, seirv_so_far=None) -> None:
+def save_state(path: str, state: SimState, seirv_so_far=None, *,
+               ws_lanes: bool = True) -> None:
+    """``ws_lanes`` False writes the work-order twin's two schedule lanes
+    as (0,) (a sharded state)."""
     host = lambda x: x.cpu().numpy()
+    sched = {name: host(lane) for name, lane in unpack_sched(state.sched).items()}
+    if not ws_lanes:
+        sched.update(at_work_ws=np.zeros(0, bool), on_bus_ws=np.zeros(0, bool))
     arrays = {
         "status": host(state.status),
         "timer": host(state.timer),
-        **{name: host(lane) for name, lane in unpack_sched(state.sched).items()},
+        **sched,
         "eligible": host(state.eligible),
         "hour": np.asarray(state.hour, np.int32),
         "lockdown": np.asarray(state.lockdown, np.bool_),

@@ -37,13 +37,20 @@ def run_ensemble(world, params_list: list[Params], cfg: SimConfig, *,
     series as numpy.  The run stops after the chunk in which every
     replicate is over (S + E + I = 0).
 
-    ``engine="vmap"`` (the JAX package's vmapped formulation) and
-    ``devices`` > 1 (replicas sharded over several cards) raise
-    NotImplementedError."""
+    ``devices`` > 1 splits the replicas over that many ranks
+    (``parallel/ensemble_mesh.py``: no per-step collectives; the replicas
+    must divide evenly), whose trajectories run in id-keyed bus-RNG mode
+    (``SimConfig.id_keyed_ensemble_rng``) and equal the one-card packing's
+    in that mode bitwise.  ``engine="vmap"`` (the JAX package's vmapped
+    formulation) raises NotImplementedError."""
     if devices is not None and devices > 1:
-        raise NotImplementedError(
-            "ensembles sharded over several cards are not ported yet "
-            "(ROADMAP.md Queue 1 item 8)")
+        if engine != "packed":
+            raise ValueError("sharded ensembles require engine='packed'")
+        from ..parallel.ensemble_mesh import run_packed_ensemble_sharded
+
+        return run_packed_ensemble_sharded(world, params_list, cfg,
+                                           n_devices=devices, seed=seed,
+                                           device=device)
     if engine == "vmap":
         raise NotImplementedError(
             "the vmapped ensemble engine is not ported: the packed engine "

@@ -26,7 +26,11 @@ pass of the fused step formulation steps them all:
   k lowest hash scores of its pool, by one bisection over all rows.
 
 Draws hash global lane ids, so the layout of :func:`pack_replicas` fixes
-every stream: it gives the JAX package's lanes exactly.  Replicates are
+every stream: it gives the JAX package's lanes exactly.  A runner over
+replicas ``[r * R_l, (r + 1) * R_l)`` of a larger packing (the
+replica-sharded ensemble, ``parallel/ensemble_mesh.py``) passes that
+packing's ids of its first lane and first rider, ``gid0`` and
+``rider_gid0``, so its draws are the larger packing's.  Replicates are
 independent simulations; a replica's trajectory has the law of a solo run
 (its streams differ, as with any reseeding).
 """
@@ -51,6 +55,7 @@ from ..ops import maths, scans, segments, threefry
 from ..ops.citizen import CITIZEN_TILE, make_citizen_statics
 from ..ops.citizen import citizen_phase
 from ..ops.hashrng import hash_bits, hash_uniform
+from ..ops.hashrng import M32
 from ..ops.runsums import permute_by_sort
 from ..ops.select import bisect_threshold_rows
 from ..runtime import resolve_device
@@ -259,25 +264,34 @@ class PackedTables:
     wpos: torch.Tensor         # int64, work-order rank of each citizen
     work_perm: torch.Tensor    # int64, citizen rank of each work-order slot
     rider_perm: torch.Tensor   # int64
-    iota: torch.Tensor         # int64 arange(N), the hash counters
+    ids: torch.Tensor          # int64 u32 (gid0 + lane), the hash counters
+    gid0: int                  # the id of lane 0 (0 for a whole packing)
+    rider_gid0: int            # the id of rider 0
     rep_f32s: torch.Tensor     # (R, 2) float32 [chance, 1 - mask eff.]
     rate: torch.Tensor         # (R,) int32 vaccination rate
     rows: _Rows
 
 
-def make_packed_tables(pe: PackedEnsemble) -> PackedTables:
-    """From an ensemble whose world lanes are tensors on the run's device."""
+def make_packed_tables(pe: PackedEnsemble, gid0: int = 0,
+                       rider_gid0: int = 0) -> PackedTables:
+    """From an ensemble whose world lanes are tensors on the run's device.
+    ``gid0`` and ``rider_gid0``: the global ids of this packing's first
+    lane and first rider in a larger packing whose replicas
+    ``[r * R_l, (r + 1) * R_l)`` it holds (0 for a whole packing)."""
     world = pe.world
     dev = world.work_perm.device
     f32 = np.float32
     rep_f32s = np.stack([pe.chance.astype(f32),
                          f32(1.0) - pe.mask_effectiveness.astype(f32)], 1)
+    iota = torch.arange(world.n_citizens, dtype=torch.int64, device=dev)
     return PackedTables(
         statics=make_citizen_statics(world),
         wpos=world.wpos.long(),
         work_perm=world.work_perm.long(),
         rider_perm=world.rider_perm.long(),
-        iota=torch.arange(world.n_citizens, dtype=torch.int64, device=dev),
+        ids=(iota + gid0) & M32,
+        gid0=int(gid0),
+        rider_gid0=int(rider_gid0),
         rep_f32s=torch.from_numpy(rep_f32s).to(dev),
         rate=torch.from_numpy(pe.vaccination_rate.astype(np.int32)).to(dev),
         rows=_Rows(dev),
@@ -307,7 +321,7 @@ def _work_side(pe, tables, cfg, gates, sched, ms, seed_w):
     q_single = maths.binomial_at_least_one(p_ws, n_eff)
     q = torch.where((cur_oa == world.ws_work_oa) & world.ws_work_neq_home,
                     maths.binomial_at_least_one(q_single, draws), 0.0)
-    hit_ws = ((g_ws & 2) != 0) & (hash_uniform(seed_w, tables.iota) < q)
+    hit_ws = ((g_ws & 2) != 0) & (hash_uniform(seed_w, tables.ids) < q)
     return permute_by_sort(tables.work_perm, hit_ws.to(torch.int8),
                            bits=1).bool()
 
@@ -333,9 +347,10 @@ def _bus_side(pe, tables, cfg, gates, ms, k_bus, k_b):
     kw = dict(rb_chance=rb_chance)
     if cfg.id_keyed_ensemble_rng:
         # ties and draws hash global rider ids (segments.bus_hits)
-        rider_ids = torch.arange(R_riders, dtype=torch.int64, device=pk.device)
+        rider_ids = (torch.arange(R_riders, dtype=torch.int64, device=pk.device)
+                     + tables.rider_gid0) & M32
         kw.update(tie_bits=hash_bits(threefry.bits(k_bus), rider_ids),
-                  draw_seed=threefry.bits(k_b))
+                  draw_seed=threefry.bits(k_b), rider_gid0=tables.rider_gid0)
     return segments.bus_hits(
         k_bus, k_b, rb_on, (pk & 16) != 0, (pk & 2) != 0, compliant,
         world.rider_route, tables.rider_perm, cfg.bus_capacity,
@@ -348,7 +363,7 @@ def _vaccinate(pe, tables, status, eligible, started, seed_vax, faithful):
     the k lowest fresh hash scores of its pool, ties at the threshold
     taken in lane order."""
     R = pe.n_replicas
-    scores = hash_bits(seed_vax, tables.iota).view(R, -1)
+    scores = hash_bits(seed_vax, tables.ids).view(R, -1)
     elig2 = eligible.view(R, -1)
     k = torch.where(started, torch.minimum(tables.rate, elig2.sum(
         1, dtype=torch.int32)), 0)
@@ -395,6 +410,7 @@ def packed_step(pe: PackedEnsemble, th, cfg: SimConfig, state: PackedState,
         u8_trunc=cfg.reference_u8_truncation,
         rep_ints=tables.rows("rep_ints", rep_ints),
         rep_f32s=tables.rep_f32s, tiles_per_rep=pe.rep_stride // CITIZEN_TILE,
+        gid0=tables.gid0,
     )
     census = rep_totals.cpu().numpy()  # (R, 8), the step's one device read
     hit_home = (gates & 4) != 0
@@ -458,13 +474,15 @@ def packed_step(pe: PackedEnsemble, th, cfg: SimConfig, state: PackedState,
     return new_state, seirv
 
 
-def make_packed_runner(pe: PackedEnsemble, cfg: SimConfig, device="cuda"):
+def make_packed_runner(pe: PackedEnsemble, cfg: SimConfig, device="cuda",
+                       gid0: int = 0, rider_gid0: int = 0):
     """``chunk(th, state) -> (state, seirv)`` stepping ``cfg.chunk_size``
     hours, seirv (chunk, R, 5) int32 on the run's device.  The world goes
-    to ``device`` and its tables are built once, here."""
+    to ``device`` and its tables are built once, here
+    (:func:`make_packed_tables`, with ``gid0`` and ``rider_gid0``)."""
     dev = resolve_device(device)
     pe_d = dataclasses.replace(pe, world=pe.world.to(dev))
-    tables = make_packed_tables(pe_d)
+    tables = make_packed_tables(pe_d, gid0, rider_gid0)
 
     def chunk(th, state):
         hours = range(state.hour + 1, state.hour + 1 + cfg.chunk_size)

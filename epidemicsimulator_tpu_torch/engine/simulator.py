@@ -1,16 +1,21 @@
 """User-facing Simulator: the analog of ``sim/src/simulator.rs``'s Simulator.
 
-The port's copy of ``epidemicsimulator_tpu/engine/simulator.py`` for one
-device.  It owns a :class:`World` on the run's device, the parameters and
-the state, and runs the chunked fused step with host-side statistics
-recording, intervention-transition lines, checkpoints and progress
-printing (simulator.rs:108-127).
+The port's copy of ``epidemicsimulator_tpu/engine/simulator.py``.  It
+owns a :class:`World` on the run's device, the parameters and the state,
+and runs the chunked fused step with host-side statistics recording,
+intervention-transition lines, checkpoints and progress printing
+(simulator.rs:108-127).  With ``devices=N`` it runs the
+population-sharded engine over N ranks (``parallel/fastmesh.py``): this
+process is rank 0 and keeps the recorder, the checkpoints and the
+artifacts, and the state is held in the padded shard layout of the
+partition (``parallel/partition.py``), as the JAX package holds it.
 
-Two behaviours of the JAX package's single-device Simulator are kept as
-they are: a run resumed from a checkpoint steps another ``max_steps``
-hours (the chunk loop counts from 0 whatever the state's hour), and its
-recorder starts empty (the checkpoint's ``__seirv__`` rows are not
-read back).
+Behaviours of the JAX package's Simulator kept as they are: a
+single-device run resumed from a checkpoint steps another ``max_steps``
+hours (the chunk loop counts from 0 whatever the state's hour), a
+sharded one steps up to hour ``max_steps`` (its loop counts from the
+state's hour), and either's recorder starts empty (the checkpoint's
+``__seirv__`` rows are not read back).
 """
 
 from __future__ import annotations
@@ -33,6 +38,14 @@ from .state import SimState, init_state
 _MASK_NAMES = {0: "None", 1: "Only Public Transport", 2: "Everywhere"}
 
 
+def _visible_cards(device) -> int:
+    """``devices=0``: one rank per card this process sees."""
+    if device.type != "cuda":
+        raise ValueError("devices=0 means one rank per visible card; on the "
+                         "CPU pass the number of ranks")
+    return torch.cuda.device_count()
+
+
 class Simulator:
     def __init__(
         self,
@@ -52,14 +65,13 @@ class Simulator:
         """``profile_dir``: write a torch.profiler Chrome trace of the
         third chunk there.  ``checkpoint_path``: snapshot the state every
         ``checkpoint_every_chunks`` chunks, and resume from an existing
-        snapshot.  ``devices`` (the JAX package's population-sharded
-        engine) is not ported yet.  ``device``: the run's device; the
-        card unless the caller passes ``"cpu"``."""
-        if devices is not None:
-            raise NotImplementedError(
-                "the population-sharded engine (devices=...) is not ported "
-                "yet (ROADMAP.md Queue 1 item 8)")
+        snapshot.  ``devices``: run the population-sharded engine over
+        that many ranks (0: one per visible card); None: the one-device
+        fast path.  ``device``: the run's device, the card unless the
+        caller passes ``"cpu"`` (then the ranks are gloo processes on the
+        CPU)."""
         self.device = resolve_device(device)
+        self.devices = devices
         self.params = params or Params.covid()
         self.cfg = cfg or SimConfig()
         self.seed = seed
@@ -69,21 +81,58 @@ class Simulator:
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every_chunks = checkpoint_every_chunks
         self._profiler = None
-        self.world = world.to(self.device)
-        self.state: SimState = init_state(
-            self.world, seed=seed, starting_infected=self.cfg.starting_infected,
-            fixed_priority_vax=wants_fixed_priority_vax(self.world, self.cfg),
-            device=self.device,
-        )
+        if devices is not None:
+            from ..parallel.fastmesh import init_sharded_state
+            from ..parallel.partition import partition_world
+
+            n_ranks = devices if devices > 0 else _visible_cards(self.device)
+            if verbose:
+                print(f"population-sharded engine over {n_ranks} rank(s)")
+            self.world = world  # partitioned on the host; ranks hold shards
+            self.sw = partition_world(world, n_ranks)
+            self.state: SimState = init_sharded_state(
+                world, self.sw, seed=seed,
+                starting_infected=self.cfg.starting_infected)
+        else:
+            self.world = world.to(self.device)
+            self.state = init_state(
+                self.world, seed=seed,
+                starting_infected=self.cfg.starting_infected,
+                fixed_priority_vax=wants_fixed_priority_vax(self.world,
+                                                            self.cfg),
+                device=self.device,
+            )
         if checkpoint_path is not None and os.path.exists(checkpoint_path):
-            self.state, _ = load_state(checkpoint_path, device=self.device)
+            self.state, _ = load_state(
+                checkpoint_path,
+                device="cpu" if devices is not None else self.device)
+            if devices is not None and (self.state.status.shape[0]
+                                        != self.sw.n_dev * self.sw.shard_size):
+                raise ValueError(
+                    f"{checkpoint_path} does not hold this partition's "
+                    f"{self.sw.n_dev} x {self.sw.shard_size} lanes")
             if verbose:
                 print(f"resumed from {checkpoint_path} at hour {self.state.hour}")
+
+    def _run_sharded(self, callback, timing: dict):
+        """The sharded chunk loop on every rank (``fastmesh.run_rank``),
+        this process as rank 0 running ``callback``; the state is gathered
+        for the callback on the chunks that checkpoint."""
+        from ..parallel.fastmesh import rank_args, run_rank
+        from ..parallel.launch import launch
+
+        every = self.checkpoint_every_chunks if self.checkpoint_path else 0
+        return launch(
+            run_rank, self.sw.n_dev, device=self.device,
+            args=(self.params, self.cfg, int(self.state.hour), every),
+            rank_args=rank_args(self.sw, self.state),
+            rank0_kwargs=dict(callback=callback, timing=timing))
 
     def simulate(self, output_dir: str | None = None) -> np.ndarray:
         """Run to completion; optionally dump the four JSON artifacts.
 
-        Returns the (T, 5) SEIRV series.
+        Returns the (T, 5) SEIRV series (None on a rank other than 0 of a
+        sharded run under ``torchrun``, which records nothing).
         """
         t0 = time.perf_counter()
         last_print = [t0]
@@ -126,7 +175,8 @@ class Simulator:
                 and chunk_counter[0] % self.checkpoint_every_chunks == 0
             ):
                 save_state(self.checkpoint_path, state,
-                           self.recorder.global_stats)
+                           self.recorder.global_stats,
+                           ws_lanes=self.devices is None)
             if self.verbose:
                 row = out.seirv[-1]
                 now = time.perf_counter()
@@ -143,10 +193,16 @@ class Simulator:
         timing: dict = {}
         self.last_timing = timing  # exposed for callers (cli_phases.json)
         try:
-            self.state, outputs = run(
-                self.world, self.params, self.cfg, self.state,
-                callback=callback, timing=timing,
-            )
+            if self.devices is not None:
+                result = self._run_sharded(callback, timing)
+                if result is None:
+                    return None  # a rank other than 0, under torchrun
+                self.state, outputs = result
+            else:
+                self.state, outputs = run(
+                    self.world, self.params, self.cfg, self.state,
+                    callback=callback, timing=timing,
+                )
         finally:
             self._stop_profile()
         seirv = np.asarray(outputs.seirv)

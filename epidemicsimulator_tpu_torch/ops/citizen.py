@@ -18,6 +18,11 @@ Lanes, all (N,):
 * ``totals`` (8,) int32: S, E, I, R, V before exposure, work contributors,
   infected riders on a bus, home hits.
 
+The home draw hashes ``gid0 + lane`` as a u32 (wrapping), ``gid0`` being
+the global id of lane 0: 0 for one world, a shard's first citizen id in
+the population-sharded engine and a rank's first packed lane in the
+replica-sharded ensemble (``pallas_citizen.py``'s ``int_scalars[6]``).
+
 Ensemble mode (``engine/packed.py``): R replicas of one world lie in R
 contiguous spans of ``tiles_per_rep`` tiles, and the per-replica values
 come from the rows of ``rep_ints`` (R, 4) int32 [move, mask status,
@@ -112,6 +117,13 @@ def _rep_values(rep_ints, rep_f32s, n, tiles_per_rep, device):
                 exposure_chance=rf[:, 0], mask_scale=rf[:, 1])
 
 
+def _u32(gid0) -> int:
+    gid0 = int(gid0)
+    if not 0 <= gid0 < 2**32:
+        raise ValueError(f"citizen_phase: gid0 must be a u32, got {gid0}")
+    return gid0
+
+
 def _require_scalars(**values):
     """Outside the ensemble mode the six per-world scalars must be given:
     a missing ``move`` would otherwise run as a lockdown."""
@@ -125,7 +137,8 @@ def citizen_phase_plain(statics, status, timer, sched, *, h24, seed, K,
                         ref_mask_sem, u8_trunc, move=None, mask_status=None,
                         exposed_time=None, infected_time=None,
                         exposure_chance=None, mask_scale=None, want_q=False,
-                        rep_ints=None, rep_f32s=None, tiles_per_rep=None):
+                        rep_ints=None, rep_f32s=None, tiles_per_rep=None,
+                        gid0=0):
     n_reps = None
     if rep_ints is not None:
         n_reps = rep_ints.shape[0]
@@ -181,7 +194,8 @@ def citizen_phase_plain(statics, status, timer, sched, *, h24, seed, K,
     q = maths.home_probability(p, (n_h & 0xFF) if u8_trunc else n_h)
     q = torch.where(~at_work1 | same_oa, q, 0.0)
 
-    idx = torch.arange(st.shape[0], dtype=torch.int64, device=status.device)
+    idx = (torch.arange(st.shape[0], dtype=torch.int64, device=status.device)
+           + _u32(gid0)) & 0xFFFFFFFF
     susceptible = st1 == 0
     hit = susceptible & (hash_uniform(seed, idx) < q)
     contrib_work = inf_active & at_work1 & wneq
@@ -210,11 +224,12 @@ def citizen_phase(statics, status, timer, sched, *, h24, seed, K,
                   ref_mask_sem, u8_trunc, move=None, mask_status=None,
                   exposed_time=None, infected_time=None, exposure_chance=None,
                   mask_scale=None, want_q=False, rep_ints=None, rep_f32s=None,
-                  tiles_per_rep=None):
+                  tiles_per_rep=None, gid0=0):
     """Returns ``(status1, timer1, sched1, gates, totals)`` (and the
     float32 home probability lane if ``want_q``).  Scalars are Python
     values: ``h24`` the hour of day, ``move`` False under lockdown,
-    ``seed`` the u32 home-draw seed, ``exposure_chance`` and
+    ``seed`` the u32 home-draw seed, ``gid0`` the u32 global id of lane
+    0 (the home draw hashes ``gid0 + lane``), ``exposure_chance`` and
     ``mask_scale`` (1 - mask_effectiveness) float32 values.  ``K`` is the
     world's largest household, at most 24.
 
@@ -246,7 +261,8 @@ def citizen_phase(statics, status, timer, sched, *, h24, seed, K,
               exposed_time=exposed_time, infected_time=infected_time,
               exposure_chance=exposure_chance, mask_scale=mask_scale, K=K,
               ref_mask_sem=ref_mask_sem, u8_trunc=u8_trunc, want_q=want_q,
-              rep_ints=rep_ints, rep_f32s=rep_f32s, tiles_per_rep=tiles_per_rep)
+              rep_ints=rep_ints, rep_f32s=rep_f32s, tiles_per_rep=tiles_per_rep,
+              gid0=_u32(gid0))
     if status.device.type == "cpu":
         return citizen_phase_plain(statics, status, timer, sched, **kw)
     lanes = (*statics, status, timer, sched)
@@ -293,8 +309,8 @@ def citizen_phase(statics, status, timer, sched, *, h24, seed, K,
         base + at_totals, base + at_totals + 32, 4 * n_partials,
         ticket.data_ptr(), base + lane4 if want_q else None,
         n, int(h24), scalar(move, lambda x: int(bool(x))),
-        scalar(mask_status, int), int(seed), scalar(exposed_time, int),
-        scalar(infected_time, int), scalar(exposure_chance, float),
+        scalar(mask_status, int), int(seed), _u32(gid0),
+        scalar(exposed_time, int), scalar(infected_time, int), scalar(exposure_chance, float),
         scalar(mask_scale, float), int(bool(ref_mask_sem)),
         int(bool(u8_trunc)),
         rep_ints.data_ptr() if ensemble else None,

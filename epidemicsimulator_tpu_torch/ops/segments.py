@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import maths, threefry
-from .hashrng import hash_uniform
+from .hashrng import M32, hash_uniform
 from .runsums import run_totals
 from .sparse import block_hierarchy, compact_from_hierarchy
 
@@ -33,7 +33,8 @@ def shuffle_order(rk, tie_u32):
 
 def _shuffle_and_draw(key_shuffle, key_draw, rb_on, rb_inf, rb_compliant,
                       rider_route, capacity: int, exposure_p_fn,
-                      rb_chance=None, tie_bits=None, draw_seed=None):
+                      rb_chance=None, tie_bits=None, draw_seed=None,
+                      rider_gid0=0):
     """Sorted rider order and the post-draw candidates ``valid & u < q``
     (susceptibility not yet applied), both in sorted order."""
     r = rb_on.shape[0]
@@ -64,13 +65,14 @@ def _shuffle_and_draw(key_shuffle, key_draw, rb_on, rb_inf, rb_compliant,
     if draw_seed is None:
         u = threefry.uniform(key_draw, r, device)
     else:
-        u = hash_uniform(draw_seed, order)
+        u = hash_uniform(draw_seed, (order + rider_gid0) & M32)
     return order, valid & (u < q)
 
 
 def bus_hits(key_shuffle, key_draw, rb_on, rb_inf, rb_susc, rb_compliant,
              rider_route, rider_citizen_id, capacity: int, exposure_p_fn,
-             n_citizens: int, rb_chance=None, tie_bits=None, draw_seed=None):
+             n_citizens: int, rb_chance=None, tie_bits=None, draw_seed=None,
+             rider_gid0: int = 0):
     """Bus exposures of one step.
 
     Inputs are rider-order lanes (R,): riding now, infected, susceptible,
@@ -85,8 +87,9 @@ def bus_hits(key_shuffle, key_draw, rb_on, rb_inf, rb_susc, rb_compliant,
     chance_sorted)``.  ``tie_bits`` (u32 values in int64) and
     ``draw_seed`` replace the counter streams over the rider lane: the
     ties are the given lane and the draw of the rider with id i is
-    ``hash_uniform(draw_seed, i)``, independent of the lane's
-    length and order.
+    ``hash_uniform(draw_seed, rider_gid0 + i)``, independent of the
+    lane's length and order; ``rider_gid0`` is the global id of rider 0
+    (a rank's first rider in the replica-sharded ensemble).
     """
     r = rb_on.shape[0]
     device = rb_on.device
@@ -98,7 +101,7 @@ def bus_hits(key_shuffle, key_draw, rb_on, rb_inf, rb_susc, rb_compliant,
     order, cand = _shuffle_and_draw(key_shuffle, key_draw, rb_on, rb_inf,
                                     rb_compliant, rider_route, capacity,
                                     exposure_p_fn, rb_chance, tie_bits,
-                                    draw_seed)
+                                    draw_seed, rider_gid0)
     hit = cand & rb_susc[order]
     hit_riders = order[hit]
     rider_lane[hit_riders] = True

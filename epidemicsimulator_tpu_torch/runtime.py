@@ -70,7 +70,8 @@ _SIGNATURES = {
     "es_citizen_phase": (
         [_P] * 14 + [ctypes.c_longlong, _P, _P, ctypes.c_longlong,
                      ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+                     ctypes.c_int,
                      ctypes.c_float, ctypes.c_float, ctypes.c_int,
                      ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P],
         ctypes.c_int,

@@ -304,6 +304,64 @@ def test_citizen_kernel_matches_plain(cuda, h24, move, mask_status, p0):
     _check_citizen(got, want)
 
 
+@pytest.mark.parametrize("gid0", [0, 12_345, 2**31 - 7, 2**32 - 5])
+def test_citizen_kernel_gid0_matches_plain(cuda, gid0):
+    """B1's gid0 mode (the home draw hashes gid0 + lane, wrapping as a
+    u32; the last offset wraps inside the lane): as
+    :func:`test_citizen_kernel_matches_plain`, and other draws than
+    gid0 = 0 where gid0 is not 0."""
+    world = et.generate_synthetic_world(200_000, n_output_areas=40, seed=2).to(cuda)
+    n = world.n_citizens
+    rng = np.random.default_rng(7)
+    dev = lambda x: torch.from_numpy(x).to(cuda)
+    status = dev(rng.choice(5, n, p=[0.7, 0.1, 0.1, 0.05, 0.05]).astype(np.int8))
+    timer = dev(rng.integers(0, 400, n).astype(np.int32))
+    sched = dev(rng.integers(0, 32, n).astype(np.int8))
+    f32 = np.float32
+    kw = dict(h24=20, move=True, mask_status=1, seed=1234, exposed_time=96,
+              infected_time=336, exposure_chance=f32(0.05),
+              mask_scale=f32(1.0) - f32(0.7), K=world.max_household_size,
+              ref_mask_sem=False, u8_trunc=True, want_q=True)
+    statics = citizen.make_citizen_statics(world)
+    got = citizen.citizen_phase(statics, status, timer, sched, gid0=gid0, **kw)
+    want = citizen.citizen_phase_plain(statics, status, timer, sched,
+                                       gid0=gid0, **kw)
+    _check_citizen(got, want)
+    zero = citizen.citizen_phase(statics, status, timer, sched, **kw)
+    assert torch.equal(got[3], zero[3]) == (gid0 == 0)
+
+
+def test_sharded_run_on_card_matches_cpu(cuda):
+    """Two ranks sharing the card (gloo, host-staged) against two gloo
+    ranks on the CPU: 4,000 citizens with transport, ``covid()``-like
+    parameters, 48 steps; every output series and the final lanes equal,
+    and B1-B3 launched on both ranks (their launches summed on rank 0)."""
+    from epidemicsimulator_tpu_torch.parallel import fastmesh
+
+    base = et.Params.covid()
+    params = et.Params(
+        dataclasses.replace(base.disease, exposure_chance=0.04,
+                            exposed_time=24, infected_time=72,
+                            vaccination_rate=25),
+        dataclasses.replace(base.thresholds, lockdown=0.2, vaccination=0.05,
+                            mask_public_transport=0.01, mask_everywhere=0.08))
+    world = et.generate_synthetic_world(4000, n_output_areas=12, seed=4)
+    cfg = et.SimConfig(max_steps=48, chunk_size=24)
+    runs = []
+    for device in ("cuda", "cpu"):
+        et.reset_launches()
+        state, _, out = fastmesh.run_fast_sharded(
+            world, params, cfg, 2, seed=0, starting_infected=40, device=device)
+        if device == "cuda":
+            launches = dict(et.launches)
+        runs.append([torch.from_numpy(np.asarray(x)) for x in out]
+                    + [state.status, state.timer, state.sched, state.eligible])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert launches["citizen_phase"] == 2 * 48
+    assert all(launches[name] for name in runtime.MAIN_PATH_KERNELS), launches
+
+
 def _standin_world(rng, n, tile=4096, big=24):
     """The lanes that citizen statics are packed from, for n citizens in
     households of 1 to ``big``: one of ``big`` across every tile edge,

@@ -502,8 +502,8 @@ def test_run_ensemble_matches_jax_and_refuses_the_rest(worlds):
     np.testing.assert_array_equal(got, np.asarray(want))
     with pytest.raises(NotImplementedError):
         t_ensemble.run_ensemble(tw, tplist, t_cfg, engine="vmap", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_ensemble.run_ensemble(tw, tplist, t_cfg, devices=2, device="cpu")
+    with pytest.raises(ValueError, match="do not divide"):
+        t_ensemble.run_ensemble(tw, tplist, t_cfg, devices=3, device="cpu")
     with pytest.raises(ValueError):
         t_ensemble.run_ensemble(tw, tplist, t_cfg, engine="bogus", device="cpu")
     stacked = t_ensemble.stack_params(tplist)

@@ -404,8 +404,16 @@ def test_cli_without_synthetic_exits_with_a_message(tmp_path):
 
 # (g) and no fallback -----------------------------------------------------
 def test_simulator_refuses_devices(worlds):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        et.Simulator(worlds[1], devices=2, device="cpu")
+    """The sharded engine runs (tests/test_torch_sharded_runs.py); what it
+    refuses: one rank per card on the CPU, and (through ``SimConfig``,
+    before any run) the JAX sharded engine's options that are not
+    ported."""
+    with pytest.raises(ValueError, match="visible card"):
+        et.Simulator(worlds[1], devices=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="use_sortless_sharded"):
+        et.Simulator(worlds[1], et.Params.covid(),
+                     et.SimConfig(use_sortless_sharded=True), devices=2,
+                     device="cpu")
 
 
 def test_entry_points_refuse_without_a_card(worlds, tmp_path, monkeypatch):
