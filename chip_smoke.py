@@ -110,7 +110,22 @@ Phases, each printing its elapsed seconds:
    counts set to 0 just before) and the comm backend printed; (c) cell
    (e)'s 64 York-scale replicas over 4 ranks (``run_ensemble(devices=
    4)``), 250 steps, equal to phase 9's one-card packing run under
-   id-keyed bus streams, bitwise.
+   id-keyed bus streams, bitwise;
+13. the portable step (``SimConfig(use_fast_path=False)``,
+   ``tools/run_torch_portable.py``): (a) phase 1's Y&H world with its
+   index tables on the card, seed 0, 20,000 infected, ``covid()``, 500
+   steps in chunks of 250 (the prefix branch's range totals with kernel
+   B3, the rider branch of the bus side), whose rows after steps 250 and
+   500 must equal :data:`PORTABLE_ROWS`, with bus hours after the
+   lockdown lifts at the JAX run's hour, ms/step by chunk, and then B3
+   against its plain version on the run's live lanes; (b) the "portable
+   ok" gate of ``__graft_entry__.py``'s ``dryrun_multichip(4)`` on 4
+   ranks sharing the card (``parallel/mesh.py::run_sharded``, 1,000,003
+   citizens, 4 steps: conservation once the pad is out of R, vaccination,
+   lockdown and masks), its last row equal to :data:`PORTABLE_ROWS`; (c)
+   the Y&H world on 4 ranks with the lockdown off, 48 steps in chunks of
+   24 (the per-rank route-key bus branch), its rows equal to
+   :data:`PORTABLE_ROWS`.
 
 Each kernel's record names the path it runs on; its ``launches`` are
 the count from that path's run, ``main_path_launches`` the count from
@@ -120,7 +135,10 @@ phase 7's CLI run, ``pipeline_launches`` the count from phase 8's,
 ``calibration_launches`` the count from phase 10's, ``uk_launches`` the
 count from phase 11's 500 steps at 63M, ``sharded_launches`` the count
 from phase 12's 500 steps on 4 ranks with transport (summed over the
-ranks) and ``sharded_ensemble_launches`` the count from phase 12 (c).
+ranks), ``sharded_ensemble_launches`` the count from phase 12 (c),
+``portable_launches`` the count from phase 13 (a) and
+``portable_sharded_launches`` the count from phase 13 (b) and (c)
+(summed over the ranks).
 B1's ensemble mode has a record of its own, ``citizen_phase_ensemble``,
 and so has its ``gid0`` mode, ``citizen_phase_gid0``: B1's launches on
 phase 12's paths (both modes; each rank passes its shard's first global
@@ -163,6 +181,26 @@ UK16_ROWS = {24: [15597094, 11759, 355998, 0, 35149],
 #: rank.
 YH4_ROWS = {250: [3070400, 2381, 23599, 0, 360762],
             500: [2741356, 2281, 7279, 21405, 684821]}
+#: phase 13: the SEIRV rows of the portable step's three runs, as the JAX
+#: package computed them on the CPU in its portable formulation,
+#: ``SimConfig(use_fast_path=False)`` (``tools/ref_jax_portable.py``,
+#: ``sample_results/portable_cpu_jax/``); the port's CPU path gives them
+#: too (``tools/run_torch_portable.py --device cpu``,
+#: ``sample_results/portable_cpu_torch/``).  (a) the Y&H world on one
+#: card, after steps 250 and 500 (the lockdown lifts at hour 337, so the
+#: buses run from hour 344); (b) the "portable ok" gate of
+#: ``__graft_entry__.py`` on 4 ranks, after step 4, the pad in R; (c) the
+#: Y&H world on 4 ranks with the lockdown off, after steps 24 and 48, the
+#: two pads in R.
+PORTABLE_ROWS = {
+    "yh": {250: [3070559, 2366, 23668, 0, 360549],
+           500: [2741333, 2294, 7273, 21410, 684832]},
+    "graft": {4: [981761, 6116, 11934, 1, 192]},
+    "yh_bus": {24: [3400196, 1994, 19938, 2, 35014],
+               48: [3362100, 3891, 19938, 2, 71213]},
+}
+#: the hour the lockdown lifts in the JAX run of PORTABLE_ROWS["yh"]
+PORTABLE_YH_LIFT = 337
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_INT32_OPS_PER_S = 33.5e12  # non-tensor INT32, H100 SXM data sheet
 T0 = time.perf_counter()
@@ -1213,6 +1251,120 @@ def sharded_path(et, world, world_dev, ensemble, card):
     return rec, counts, ens_counts
 
 
+def hold_b3_portable(world, state):
+    """B3 against its plain version on the portable step's live lanes at
+    full width, after a run: the household contributors (citizen order),
+    the work contributors (work order) and, as a work hour's stand-in,
+    every infected citizen off the bus in work order; the cumsums and the
+    prefix branch's range totals, bitwise.  Returns the lanes' ones."""
+    import torch
+
+    from epidemicsimulator_tpu_torch.config import STATUS_INFECTED
+    from epidemicsimulator_tpu_torch.ops import runsums, scans
+
+    at_work = (state.sched & 1) != 0
+    inf_active = (state.status == STATUS_INFECTED) & ((state.sched & 2) == 0)
+    neq = world.work_building != world.home_building
+    perm = world.work_perm.long()
+    lanes = {
+        "household contributors": (inf_active & (~at_work | ~neq),
+                                   world.home_lo, world.home_hi),
+        "work contributors": ((inf_active & at_work & neq)[perm],
+                              world.wb_lo, world.wb_hi),
+        "infected in work order": (inf_active[perm], world.room_lo,
+                                   world.room_hi),
+    }
+    ones = {}
+    for name, (v, lo, hi) in lanes.items():
+        if not torch.equal(scans.cumsum_i8(v), scans.cumsum_i8_plain(v)):
+            raise AssertionError(f"cumsum_i8 disagrees with its plain version "
+                                 f"on the portable path ({name})")
+        if not torch.equal(scans.range_totals(v, lo, hi),
+                           runsums.range_totals(v, lo, hi)):
+            raise AssertionError(f"B3's range totals disagree with the plain "
+                                 f"ones on the portable path ({name})")
+        ones[name] = int(v.sum())
+    return ones
+
+
+def check_rows(rows, want, what):
+    if rows != want:
+        raise AssertionError(f"{what}: SEIRV rows {rows} differ from the JAX "
+                             f"package's CPU rows {want}")
+
+
+def portable_path(et, world, world_dev, card):
+    """Phase 13: the portable step, ``SimConfig(use_fast_path=False)``.
+    (a) the Y&H world with its index tables on the card, 500 steps: the
+    prefix branch (B3) and the rider branch; (b) ``__graft_entry__.py``'s
+    "portable ok" gate and (c) the Y&H world with the lockdown off, each
+    on 4 ranks sharing the card (``parallel/mesh.py::run_sharded``).
+    Returns B3's launches in (a) and those of (b) and (c) summed over
+    their ranks, with the counts set to 0 before each run."""
+    import torch
+
+    tool = load_tool("run_torch_portable")
+    t_phase = time.perf_counter()
+
+    # (a)
+    res = tool.yh(et, world_dev, device="cuda")
+    counts = res["launches"]
+    rows = {int(k): v for k, v in res["rows"].items()}
+    after_lift = sum(res["n_bus_exposures"][PORTABLE_YH_LIFT:])
+    say(f"(a) Y&H, one card, portable step: SEIRV after steps 250 and 500 "
+        f"{rows[250]}, {rows[500]}; the lockdown lifts at hour(s) "
+        f"{res['lockdown_lifts_at_hour']} (the JAX run's: "
+        f"{PORTABLE_YH_LIFT}), {after_lift:,} bus exposures after it; "
+        f"ms/step by chunk of 250 on {card}: "
+        + " ".join(f"{ms:.3f}" for ms in res["chunk_ms"])
+        + f"; launches {counts}")
+    check_rows(rows, PORTABLE_ROWS["yh"], "(a) the portable Y&H run")
+    if res["lockdown_lifts_at_hour"] != [PORTABLE_YH_LIFT] or after_lift == 0:
+        raise AssertionError("(a) the run has no bus hours after the lockdown "
+                             "lifts at the JAX run's hour")
+    if counts["cumsum_i8"] == 0 or any(
+            v for name, v in counts.items() if name != "cumsum_i8"):
+        raise AssertionError("(a) the portable path must launch B3 and no "
+                             "other kernel")
+    torch.cuda.synchronize()
+    ones = hold_b3_portable(world_dev, res["final_state"])
+    del res
+    say(f"  B3 equal to its plain version on the live lanes after step 500 "
+        f"(cumsums and range totals): {ones}")
+
+    # (b)
+    gr = tool.graft(et, device="cuda")
+    say(f"(b) the graft gate on 4 ranks: SEIRV after step 4 "
+        f"{gr['rows']['4']} (the pad in R), lockdown "
+        f"{gr['lockdown_on_at_end']}, mask {gr['mask_status_at_end']}, "
+        f"{gr['n_vaccinated']} vaccinated; {gr['total_s']:.2f} s with the "
+        f"ranks' start; launches {gr['launches']}")
+    check_rows({int(k): v for k, v in gr["rows"].items()},
+               PORTABLE_ROWS["graft"], "(b) the graft gate")
+    say(f"dryrun_multichip(4) portable ok (conservation, vaccination, "
+        f"lockdown and masks)")
+
+    # (c)
+    bus = tool.yh_bus(et, world, device="cuda")
+    rows = {int(k): v for k, v in bus["rows"].items()}
+    say(f"(c) Y&H on 4 ranks, lockdown off: SEIRV after steps 24 and 48 "
+        f"{rows[24]}, {rows[48]} (the two pads in R), "
+        f"{sum(bus['n_bus_exposures']):,} bus exposures, "
+        f"{bus['n_vaccinated']:,} vaccinated; ms/step by chunk of 24 on "
+        f"{card}, 4 ranks sharing it (the first with the ranks' start): "
+        + " ".join(f"{ms:.3f}" for ms in bus["chunk_ms"])
+        + f"; launches {bus['launches']}")
+    check_rows(rows, PORTABLE_ROWS["yh_bus"], "(c) the sharded bus run")
+    if sum(bus["n_bus_exposures"]) == 0:
+        raise AssertionError("(c) no bus exposures on 4 ranks")
+    sharded = {k: gr["launches"][k] + bus["launches"][k]
+               for k in bus["launches"]}
+    if any(v for name, v in sharded.items() if name != "cumsum_i8"):
+        raise AssertionError("(b, c) a kernel other than B3 ran")
+    say(f"phase 13 took {time.perf_counter() - t_phase:.2f}s")
+    return counts, sharded
+
+
 def main():
     import torch
 
@@ -1268,6 +1420,8 @@ def main():
         et, world, world_dev, ensemble, smi)
     gid0_rec["main_path_launches"] = 0
     records.append(gid0_rec)
+    portable_counts, portable_sharded_counts = portable_path(
+        et, world, world_dev, smi)
     one_card = dict(york_launches=york_counts,
                     pipeline_launches=pipeline_counts,
                     ensemble_launches=ens_counts,
@@ -1286,6 +1440,8 @@ def main():
             rec["sharded_launches"] = 0 if b1 else sharded_counts[name]
             rec["sharded_ensemble_launches"] = (
                 0 if b1 else sharded_ens_counts[name])
+        rec["portable_launches"] = portable_counts.get(name, 0)
+        rec["portable_sharded_launches"] = portable_sharded_counts.get(name, 0)
 
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -13,6 +13,10 @@ makes from census tables, an OSM extract and OA polygons (``data/``).
 world (``engine/packed.py``), and ``calibrate.calibrate`` fits a
 parameter to a target curve with it.  ``generate_synthetic_world_device``
 builds a synthetic world on the card itself, up to the full UK.
+``SimConfig(use_fast_path=False)`` (or a world ``without_index_tables``)
+steps with the portable step, the formulation the JAX package's scalar
+oracle checks, which ``parallel/mesh.py::run_sharded`` shards over ranks;
+``viz/`` draws maps, graphs and a live GIF on the host.
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where each CUDA kernel is replaced by its plain torch version.
 """

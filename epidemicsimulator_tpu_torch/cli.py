@@ -9,6 +9,10 @@ Modes:
   --calibrate TARGET      fit a parameter to a reference-format
                           global_stats.json instead of simulating
   --synthetic N           use a synthetic world of N citizens (no data files)
+  --render                the building-density choropleth and the citizen
+                          graph's statistics
+  --visualise             OA outlines with the buildings on top
+  --visualise-buildings   the classified building scatter
 
   python -m epidemicsimulator_tpu_torch.cli 1946157112 --directory data \\
       --pbf york.osm.pbf --shapefile york_oas.shp --simulate
@@ -32,9 +36,10 @@ geometry sidecar, the OSM parse cache ``<pbf>.parsed.npz`` and
 ``<world cache>.build_timings.json`` have the JAX package's names and
 layout.  ``--devices N`` runs the population-sharded engine over N ranks
 (0: one per visible card; with ``--device cpu``, N gloo processes on the
-CPU).  The downloads compute nothing on a device and run without a
-card.  Not offered yet: ``--render`` and ``--visualise*`` (ROADMAP.md
-Queue 1).
+CPU).  ``--render``, ``--visualise`` and ``--visualise-buildings`` draw a
+PNG into ``--output-name`` from the world and its geometry sidecar
+(``viz/``, matplotlib and networkx on the host).  The downloads and the
+drawings compute nothing on a device and run without a card.
 """
 
 from __future__ import annotations
@@ -67,6 +72,13 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=int, default=None, metavar="ROW")
     p.add_argument("--table", default=None,
                    help="with --resume: a CensusTable name (default AGE_STRUCTURE)")
+    p.add_argument("--render", action="store_true",
+                   help="draw the building-density choropleth and print the "
+                   "citizen graph's statistics")
+    p.add_argument("--visualise", action="store_true",
+                   help="draw the OA outlines with the buildings on top")
+    p.add_argument("--visualise-buildings", action="store_true",
+                   help="draw the classified building scatter")
     p.add_argument("--synthetic", type=int, default=None, metavar="N_CITIZENS")
     p.add_argument("--census-like", action="store_true",
                    help="with --synthetic: census-shaped structure (England "
@@ -115,9 +127,16 @@ def _geometry_cache_path(args) -> str:
     )
 
 
+def _draws(args) -> bool:
+    return args.render or args.visualise or args.visualise_buildings
+
+
 def load_or_build_world(args, phases=None):
-    """-> World.  A built world is cached with its geometry sidecar, which
-    the JAX package's CLI reads.  Where the census/OSM pipeline builds it
+    """-> (World, WorldGeometry or None).  A built world is cached with its
+    geometry sidecar (OA rings and the building scatter), which the JAX
+    package's CLI reads too; a cached world comes with its sidecar where
+    there is one.  A synthetic world's geometry is made where it is saved
+    or drawn.  Where the census/OSM pipeline builds it
     and ``phases`` is given, ``phases["world_pipeline"]`` receives the
     wall seconds of its steps: the census tables, the shapefile, the PBF
     (or its parse cache), the national grid, the dedupe (with the first
@@ -126,9 +145,12 @@ def load_or_build_world(args, phases=None):
     from .world.schema import World
 
     cache = _world_cache_path(args)
+    geo_cache = _geometry_cache_path(args)
     if args.use_cache and os.path.exists(cache):
         logging.info("loading cached world from %s", cache)
-        return World.load_npz(cache)
+        geometry = (WorldGeometry.load_npz(geo_cache)
+                    if os.path.exists(geo_cache) else None)
+        return World.load_npz(cache), geometry
 
     if args.synthetic:
         if args.census_like:
@@ -140,11 +162,13 @@ def load_or_build_world(args, phases=None):
             args.synthetic, n_output_areas=max(4, args.synthetic // 300),
             seed=args.seed,
         )
+        geometry = None
+        if os.path.isdir(args.directory) or _draws(args):
+            geometry = synthetic_geometry(world, seed=args.seed)
         if os.path.isdir(args.directory):
             world.save_npz(cache)
-            synthetic_geometry(world, seed=args.seed).save_npz(
-                _geometry_cache_path(args))
-        return world
+            geometry.save_npz(geo_cache)
+        return world, geometry
 
     # full pipeline: census CSVs + OSM pbf + OA shapefile
     import numpy as np
@@ -208,14 +232,15 @@ def load_or_build_world(args, phases=None):
     with open(cache + ".build_timings.json", "w") as f:
         json.dump(timings, f, indent=1)
     world.save_npz(cache)
-    WorldGeometry(
+    geometry = WorldGeometry(
         rings=rings, ring_starts=starts, codes=list(codes),
         b_east=osm.east, b_north=osm.north, b_classes=osm.classes,
-    ).save_npz(_geometry_cache_path(args))
+    )
+    geometry.save_npz(geo_cache)
     lap("caches_written_s")
     if phases is not None:
         phases["world_pipeline"] = split
-    return world
+    return world, geometry
 
 
 def download(args) -> int:
@@ -237,6 +262,55 @@ def download(args) -> int:
         )
     else:
         download_all_tables(args.directory, args.area)
+    return 0
+
+
+def visualise(args, world, geometry) -> int:
+    """``--render``, ``--visualise`` and ``--visualise-buildings``."""
+    if geometry is None:
+        logging.error(
+            "visualisation needs geometry: rebuild the world once "
+            "without --use-cache (writes the geometry sidecar), or "
+            "pass --shapefile"
+        )
+        return 1
+    if args.visualise_buildings:
+        # classified building scatter (run/src/main.rs:214-232
+        # "raw_buildings.png")
+        from .viz.maps import draw_buildings
+
+        out = args.output_name or f"{args.area}_raw_buildings.png"
+        draw_buildings(out, geometry.b_east, geometry.b_north,
+                       geometry.b_classes)
+    elif args.visualise:
+        # polygons + building overlay (run/src/main.rs:263-288
+        # "BuildingsAndOutputAreas.png")
+        from .viz.maps import draw_buildings_and_output_areas
+
+        out = args.output_name or f"{args.area}_buildings_and_oas.png"
+        draw_buildings_and_output_areas(
+            out, geometry.rings, geometry.ring_starts,
+            geometry.b_east, geometry.b_north, geometry.b_classes,
+        )
+    else:
+        # value-coloured OA choropleth: buildings per OA / 100, the
+        # reference's BuildingDensity measure (run/src/main.rs:246-261),
+        # plus the citizen graph's statistics (visualise.rs:44-59)
+        from .viz.graphs import citizen_connections, connected_components_count
+        from .viz.maps import draw_output_areas
+        from .world.geometry import buildings_per_output_area
+
+        out = args.output_name or f"{args.area}_building_density.png"
+        density = buildings_per_output_area(world) / 100.0
+        draw_output_areas(
+            out, geometry.rings, geometry.ring_starts,
+            values=density[: geometry.n_polygons], title="Building density",
+        )
+        g = citizen_connections(world)
+        print(f"There are {g.number_of_nodes()} nodes and "
+              f"{g.number_of_edges()} edges")
+        print(f"There are {connected_components_count(g)} connected groups")
+    logging.info("wrote %s", out)
     return 0
 
 
@@ -273,13 +347,17 @@ def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
     if args.download or args.resume is not None:
         return download(args)
-    resolve_device(args.device)  # no card: raise before building anything
+    if not _draws(args):
+        resolve_device(args.device)  # no card: raise before building anything
 
     phases: dict = {}  # coarse wall-clock phases -> <output>/cli_phases.json
     t_start = time.perf_counter()
 
-    world = load_or_build_world(args, phases)
+    world, geometry = load_or_build_world(args, phases)
     phases["world_load_or_build_s"] = round(time.perf_counter() - t_start, 2)
+
+    if _draws(args):
+        return visualise(args, world, geometry)
 
     if args.calibrate:
         return calibrate(args, world)

@@ -126,13 +126,18 @@ class Params:
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """The structural knobs that the fused fast step and the Simulator
-    read."""
+    """The structural knobs that the steps and the Simulator read."""
 
     max_steps: int = 5000
     chunk_size: int = 250
     #: per-OA exposure counts per step (statistics.rs:181-195)
     record_exposures_per_oa: bool = True
+    #: step with the fused fast step (engine/fastpath.py) when the world
+    #: carries its tables; False, or a world without them, steps with the
+    #: portable step (engine/step.py), the formulation the JAX package's
+    #: scalar oracle checks.  The packed and the fast sharded engines have
+    #: no portable form and refuse False.
+    use_fast_path: bool = True
     #: the reference's inverted mask logic (citizen.rs:228-232)
     reference_mask_semantics: bool = True
     #: the reference's ``exposure_total as u8`` cast (citizen.rs:239)
@@ -140,6 +145,11 @@ class SimConfig:
     #: the reference's vaccine-pool quirks (simulator.rs:346-348, 524-553)
     faithful_vaccine_bugs: bool = True
     bus_capacity: int = BUS_CAPACITY
+    #: the portable step's bound on vaccinations per step: it takes the
+    #: min(this, N) lowest scores and vaccinates the first
+    #: ``vaccination_rate`` of them (a reference quirk the port copies:
+    #: a rate above the bound vaccinates only this many)
+    max_vaccinations_per_step: int = 85 * 18
     #: infections seeded by the Simulator's initial state
     starting_infected: int = STARTING_INFECTED_COUNT
     #: the packed ensemble's bus streams (engine/packed.py): None or False
@@ -189,6 +199,17 @@ class SimConfig:
                 raise NotImplementedError(
                     f"SimConfig.{name}={getattr(self, name)!r}: this option "
                     "of the JAX package is not ported")
+
+
+def require_fast_path(cfg: SimConfig, engine: str) -> None:
+    """Refuse ``use_fast_path=False`` in an engine that has only the fast
+    formulation (the packed ensemble and the fast sharded engine, as in
+    the JAX package), so that no run ignores the field."""
+    if not cfg.use_fast_path:
+        raise NotImplementedError(
+            f"SimConfig.use_fast_path=False: the {engine} has no portable "
+            "form (the portable step runs through step, run, the Simulator "
+            "and parallel/mesh.py's run_sharded)")
 
 
 #: the JAX package's options that the port does not carry, with the values

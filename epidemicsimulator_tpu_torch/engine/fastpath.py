@@ -142,7 +142,7 @@ def wants_fixed_priority_vax(world, cfg) -> bool:
     fp = cfg.vaccination_fixed_priority
     if fp is None:
         fp = world.n_citizens >= 16_000_000
-    return bool(fp) and world.has_fast_tables
+    return bool(fp) and cfg.use_fast_path and world.has_fast_tables
 
 
 def _fresh_choice(eligible, k, seed_vax, tables):
@@ -232,6 +232,25 @@ def next_mask_status(ms, pct, th_pt, th_all):
     ).astype(np.int8)
 
 
+def interventions(th, state: SimState, census):
+    """The intervention state machine (interventions.rs:110-184) on the
+    host, from the step's S, E, I, R, V census (a host list), in float32
+    as the JAX package compares: exposures only move citizens from S to
+    E, so the census decides it.  Returns ``(lockdown, newly_started,
+    vaccination_started, mask_status)``."""
+    f32 = np.float32
+    pct = f32(census[2]) / f32(sum(census[:5]))
+    lockdown = bool(f32(th.lockdown) >= 0 and f32(th.lockdown) < pct)
+    newly_started = bool(not state.vaccination_started
+                         and f32(th.vaccination) >= 0
+                         and f32(th.vaccination) < pct)
+    ms_next = int(next_mask_status(state.mask_status, pct,
+                                   f32(th.mask_public_transport),
+                                   f32(th.mask_everywhere)))
+    return (lockdown, newly_started,
+            state.vaccination_started or newly_started, ms_next)
+
+
 def fast_step(world, params, cfg, state: SimState, tables=None):
     """One hour from ``state``; returns ``(new_state, StepOutput)``.
     ``world`` holds tensors on the state's device; ``tables`` are its
@@ -309,19 +328,10 @@ def fast_step(world, params, cfg, state: SimState, tables=None):
     seirv[STATUS_SUSCEPTIBLE] -= n_new
     seirv[STATUS_EXPOSED] += n_new
 
-    # interventions (interventions.rs:110-184), in float32 as the JAX
-    # package compares them; the census total is N and exposures only move
-    # citizens from S to E, so the census decides them
-    pct = f32(census[2]) / f32(sum(census[:5]))
-    lockdown = bool(f32(th.lockdown) >= 0 and f32(th.lockdown) < pct)
-    newly_started = (not state.vaccination_started
-                     and f32(th.vaccination) >= 0 and f32(th.vaccination) < pct)
-    vaccination_started = state.vaccination_started or newly_started
+    lockdown, newly_started, vaccination_started, ms_next = interventions(
+        th, state, census)
     if newly_started:
         eligible = status == STATUS_SUSCEPTIBLE
-    ms_next = int(next_mask_status(state.mask_status, pct,
-                                   f32(th.mask_public_transport),
-                                   f32(th.mask_everywhere)))
 
     vax_pool, vax_pool_size = state.vax_pool, state.vax_pool_size
     if vaccination_started:

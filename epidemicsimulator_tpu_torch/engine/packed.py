@@ -50,6 +50,7 @@ from ..config import (
     STATUS_VACCINATED,
     Params,
     SimConfig,
+    require_fast_path,
 )
 from ..ops import maths, scans, segments, threefry
 from ..ops.citizen import CITIZEN_TILE, make_citizen_statics
@@ -480,6 +481,7 @@ def make_packed_runner(pe: PackedEnsemble, cfg: SimConfig, device="cuda",
     hours, seirv (chunk, R, 5) int32 on the run's device.  The world goes
     to ``device`` and its tables are built once, here
     (:func:`make_packed_tables`, with ``gid0`` and ``rider_gid0``)."""
+    require_fast_path(cfg, "packed ensemble engine")
     dev = resolve_device(device)
     pe_d = dataclasses.replace(pe, world=pe.world.to(dev))
     tables = make_packed_tables(pe_d, gid0, rider_gid0)
@@ -516,6 +518,7 @@ def run_packed_ensemble(base: World, param_list: list[Params], cfg: SimConfig,
     """Pack, run to ``cfg.max_steps`` (stopping after the chunk in which
     :func:`ensemble_done` holds) and return the (R, T, 5) SEIRV series as
     numpy.  Each replica keeps its own thresholds."""
+    require_fast_path(cfg, "packed ensemble engine")
     pe = pack_replicas(base, param_list, block_rows=block_rows)
     state = init_packed_state(pe, seed=seed,
                               starting_infected=cfg.starting_infected,

@@ -16,14 +16,16 @@ import numpy as np
 import torch
 
 from .fastpath import make_step_tables
-from .step import StepOutput, step
+from .step import StepOutput, step, uses_fast_step
 
 
 def make_chunk_runner(world, cfg):
     """``chunk(params, state) -> (state, StepOutput[chunk_size])`` for a
-    world whose lanes are on the run's device.  The per-OA series is
-    int16, saturating at 32767, as the JAX package ships it."""
-    tables = make_step_tables(world)
+    world whose lanes are on the run's device, stepping with the step
+    :func:`.step.step` picks (the fast step's tables are built here, once).
+    The per-OA series is int16, saturating at 32767, as the JAX package
+    ships it."""
+    tables = make_step_tables(world) if uses_fast_step(world, cfg) else None
 
     def chunk(params, state):
         outs = []

@@ -26,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import Params, SimConfig
+from ..config import Params, SimConfig, require_fast_path
 from ..runtime import resolve_device
 from ..stats.recorder import StatisticsRecorder, _memory_usage_string
 from ..world.schema import World
@@ -83,6 +83,8 @@ class Simulator:
         self._profiler = None
         if devices is not None:
             from ..parallel.fastmesh import init_sharded_state
+
+            require_fast_path(self.cfg, "fast sharded engine")
             from ..parallel.partition import partition_world
 
             n_ranks = devices if devices > 0 else _visible_cards(self.device)

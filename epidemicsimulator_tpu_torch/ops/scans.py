@@ -106,12 +106,17 @@ def cumsum_i8_2phase(v):
     return buf[:n]
 
 
-def range_totals(v, lo, hi):
+def range_totals(v, lo, hi, *more):
     """Totals of v over the ranges [lo, hi) through one B3 cumsum (the
-    JAX package's range_totals_pallas)."""
+    JAX package's range_totals_pallas).  With ``more`` (lo, hi) lanes
+    after the first pair, a tuple of each pair's totals from that one
+    cumsum."""
     cs = cumsum_i8(v)
     cs0 = torch.cat([cs.new_zeros(1), cs])
-    return cs0[hi.long()] - cs0[lo.long()]
+    bounds = (lo, hi, *more)
+    totals = tuple(cs0[bounds[i + 1].long()] - cs0[bounds[i].long()]
+                   for i in range(0, len(bounds), 2))
+    return totals if more else totals[0]
 
 
 def run_totals_fused_plain(v, sets):

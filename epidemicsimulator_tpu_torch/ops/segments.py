@@ -1,7 +1,9 @@
-"""The per-step bus grouping: shuffle each route's riders, cut them into
-buses of ``capacity``, and draw each susceptible rider's exposure.
+"""Segment counts and the per-step bus grouping: shuffle each route's
+riders, cut them into buses of ``capacity``, and draw each susceptible
+rider's exposure.
 
-A plain torch copy of ``bus_hits`` and ``bus_hits_sortless`` from
+A plain torch copy of ``count_per_segment``, ``bus_infection_counts``,
+``bus_exposure_probability``, ``bus_hits`` and ``bus_hits_sortless`` from
 ``epidemicsimulator_tpu/ops/segments.py``.  The shuffle is a stable sort
 by (route, tie), where non-riding lanes carry route INT32_MAX and ``tie``
 is the threefry u32 lane read as SIGNED int32.  torch has no two-key sort,
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from . import maths, threefry
+from . import maths, scans, threefry
 from .hashrng import M32, hash_uniform
 from .runsums import run_totals
 from .sparse import block_hierarchy, compact_from_hierarchy
@@ -25,10 +27,68 @@ INT32_MAX = 2**31 - 1
 
 def shuffle_order(rk, tie_u32):
     """Stable order by (rk, tie read as signed int32): ``(rk_sorted,
-    order)``.  ``rk`` holds nonnegative int32 values and ``tie_u32`` u32
-    values, both in int64."""
+    order)``.  ``rk`` holds int32 values, negative ones too, and
+    ``tie_u32`` u32 values, both in int64.  The packed key orders by rk
+    first because the low 32 bits, which hold the flipped tie, read as
+    unsigned, and an arithmetic shift gives rk back."""
     key_s, order = torch.sort((rk << 32) | (tie_u32 ^ 0x80000000), stable=True)
     return key_s >> 32, order
+
+
+def count_per_segment(values, segment_ids, num_segments: int):
+    """``segment_sum`` with int32 accumulation: the int32 total of
+    ``values`` per id in [0, num_segments); ids outside it are dropped, as
+    ``jax.ops.segment_sum`` drops them."""
+    ids = segment_ids.long()
+    keep = (ids >= 0) & (ids < num_segments)
+    out = torch.zeros(num_segments, dtype=torch.int32, device=ids.device)
+    return out.index_add_(0, torch.where(keep, ids, 0),
+                          torch.where(keep, values.to(torch.int32), 0))
+
+
+def bus_infection_counts(key, on_bus, route_key, infected, capacity: int):
+    """Per-citizen count of the infected riders sharing the citizen's bus
+    this step (0 for non-riders): ``bus_infection_counts`` of the JAX
+    package, for its portable step.
+
+    ``on_bus`` and ``infected`` are (N,) bool lanes, ``route_key`` an (N,)
+    int32 route id (ignored for non-riders, and read as a signed int32:
+    the sharded step's ``src * n_oa + dst`` wraps there from 46,341 OAs
+    on, and equal wrapped keys share buses, as in the JAX package) and
+    ``key`` the threefry key of the shuffle.  Riders are sorted by (route,
+    threefry tie as signed int32), stably, and each route's run is cut
+    into buses of ``capacity`` (public_transport_route.rs:79)."""
+    n = on_bus.shape[0]
+    device = on_bus.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int32, device=device)
+    rk = torch.where(on_bus, route_key.long(), INT32_MAX)
+    rk_s, order = shuffle_order(rk, threefry.bits(key, n, device))
+    boundary = torch.ones(n, dtype=torch.bool, device=device)
+    boundary[1:] = rk_s[1:] != rk_s[:-1]
+    # each route run's start, by a cumsum of the boundary flags (kernel B3)
+    # and a scatter of the boundaries' positions to their run ids; the
+    # other lanes write the spare slot n
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    run_id = scans.cumsum_i8(boundary).long() - 1
+    starts = torch.empty(n + 1, dtype=torch.int64, device=device)
+    starts[torch.where(boundary, run_id, n)] = pos
+    seg_start = starts[run_id]
+    bus_first = seg_start + (pos - seg_start) // capacity * capacity
+    n_bus = torch.zeros(n, dtype=torch.int32, device=device).index_add_(
+        0, bus_first, infected[order].to(torch.int32))
+    n_my_bus = torch.where(rk_s != INT32_MAX, n_bus[bus_first], 0)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    out[order] = n_my_bus
+    return out
+
+
+def bus_exposure_probability(p_exposure, n_inf_my_bus):
+    """A rider's float32 chance of exposure on the bus,
+    ``binomial(p, n)`` where n > 0 (simulator.rs:385-400), else 0."""
+    return torch.where(n_inf_my_bus > 0,
+                       maths.binomial_at_least_one(p_exposure, n_inf_my_bus),
+                       0.0)
 
 
 def _shuffle_and_draw(key_shuffle, key_draw, rb_on, rb_inf, rb_compliant,

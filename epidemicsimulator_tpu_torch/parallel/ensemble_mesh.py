@@ -28,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import InterventionThresholds
+from ..config import InterventionThresholds, require_fast_path
 from ..engine.ensemble import stack_params
 from ..engine.packed import (
     LANES as LANE_WIDTH, PackedEnsemble, PackedState, ensemble_done,
@@ -105,6 +105,7 @@ def run_packed_ensemble_sharded(base, param_list, cfg, *, n_devices: int,
     replicas each; returns the (R, T, 5) SEIRV series as numpy, bitwise
     the one-card packing's with ``id_keyed_ensemble_rng=True`` (which
     this runner forces)."""
+    require_fast_path(cfg, "packed ensemble engine")
     R = len(param_list)
     if R % n_devices:
         raise ValueError(f"{R} replicates do not divide over {n_devices} "

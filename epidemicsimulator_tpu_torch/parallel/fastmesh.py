@@ -47,8 +47,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import STATUS_EXPOSED, STATUS_SUSCEPTIBLE, STATUS_VACCINATED
-from ..engine.fastpath import _exposure_p, next_mask_status
+from ..config import (
+    STATUS_EXPOSED,
+    STATUS_SUSCEPTIBLE,
+    STATUS_VACCINATED,
+    require_fast_path,
+)
+from ..engine.fastpath import _exposure_p, interventions
 from ..engine.state import SimState, init_state
 from ..engine.step import StepOutput
 from ..ops import maths, scans, segments, threefry
@@ -274,17 +279,11 @@ def fast_shard_step(sw: ShardedWorld, tables: ShardTables, params, cfg,
     else:
         eligible = state.eligible & ~newly
 
-    # interventions on the summed census (S to E moves leave I and N)
-    pct = f32(census[2]) / f32(sum(census[:5]))
-    lockdown = bool(f32(th.lockdown) >= 0 and f32(th.lockdown) < pct)
-    newly_started = (not state.vaccination_started
-                     and f32(th.vaccination) >= 0 and f32(th.vaccination) < pct)
-    started = state.vaccination_started or newly_started
+    # interventions on the summed census
+    lockdown, newly_started, started, ms_next = interventions(th, state,
+                                                              census)
     if newly_started:
         eligible = status == STATUS_SUSCEPTIBLE
-    ms_next = int(next_mask_status(state.mask_status, pct,
-                                   f32(th.mask_public_transport),
-                                   f32(th.mask_everywhere)))
     n_vax = torch.zeros((), dtype=torch.int32, device=status.device)
     if started:
         status, eligible, chosen = _vaccinate(
@@ -311,6 +310,7 @@ def make_shard_chunk_runner(sw: ShardedWorld, cfg, group):
     """``chunk(params, state) -> (state, StepOutput)`` for one rank's
     shard: ``cfg.chunk_size`` steps, the outputs as numpy arrays, the same
     on every rank."""
+    require_fast_path(cfg, "fast sharded engine")
     tables = make_shard_tables(sw, group.device)
 
     def chunk(params, state):
@@ -459,6 +459,7 @@ def run_fast_sharded(world, params, cfg, devices: int, *, seed=0,
     an initial state in the padded shard layout (default
     :func:`init_sharded_state`).  Returns ``(final state in the padded
     shard layout, the ShardedWorld, outputs)``."""
+    require_fast_path(cfg, "fast sharded engine")
     sw = partition_world(world, devices)
     if state is None:
         state = init_sharded_state(world, sw, seed=seed,

@@ -97,6 +97,24 @@ class World:
     def has_fast_tables(self) -> bool:
         return self.wpos is not None and self.wpos.shape[0] > 0
 
+    @property
+    def has_index_tables(self) -> bool:
+        return self.home_lo is not None and self.home_lo.shape[0] > 0
+
+    def without_index_tables(self) -> "World":
+        """The world with every derived lane size 0 (the JAX package's
+        ``without_index_tables``): its steps take the portable step's
+        segment-sum branch, and the sharded engine slices the core lanes
+        alone.  The lanes keep the world's kind: numpy, or tensors on the
+        world's device."""
+        lane = self.home_building
+        empty = (torch.zeros(0, dtype=torch.int32, device=lane.device)
+                 if isinstance(lane, torch.Tensor) else np.zeros(0, np.int32))
+        return dataclasses.replace(self, **{
+            f.name: empty for f in dataclasses.fields(self)
+            if f.name not in self.CORE_LANES and not f.metadata.get("static")
+        })
+
     def lane_names(self):
         return [
             f.name for f in dataclasses.fields(self)

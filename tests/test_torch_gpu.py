@@ -765,3 +765,66 @@ def test_pool_run_on_card_matches_cpu(cuda, regime):
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     assert int(runs[1][-1].sum()) > 0 and runs[1][3].shape == (n,)
+
+
+@pytest.mark.parametrize("branch", ["prefix", "segment"])
+def test_portable_run_on_card_matches_cpu(cuda, branch):
+    """The portable step (``SimConfig(use_fast_path=False)``) on a 20,000
+    citizen world, riders every day, masks and vaccination on: the card's
+    run equals the CPU's plain run, SEIRV, per-OA and count series and
+    final lanes, bitwise.  ``prefix``: the world's index tables (B3's
+    range totals, the rider branch); ``segment``: without them
+    (``index_add_`` segment sums, the per-citizen route keys)."""
+    base = et.Params.covid()
+    params = et.Params(
+        dataclasses.replace(base.disease, exposure_chance=0.02,
+                            exposed_time=24, infected_time=72,
+                            vaccination_rate=25),
+        dataclasses.replace(base.thresholds, lockdown=-1.0, vaccination=0.03,
+                            mask_public_transport=0.01, mask_everywhere=0.05))
+    cfg = et.SimConfig(max_steps=48, chunk_size=48, use_fast_path=False)
+    runs = []
+    for device in (cuda, "cpu"):
+        world = et.generate_synthetic_world(20_000, n_output_areas=32, seed=2)
+        if branch == "segment":
+            world = world.without_index_tables()
+        world = world.to(device)
+        state = et.init_state(world, seed=0, starting_infected=150,
+                              device=device)
+        et.reset_launches()
+        state, out = et.make_chunk_runner(world, cfg)(params, state)
+        runs.append([state.status.cpu(), state.timer.cpu(), state.sched.cpu(),
+                     state.eligible.cpu(), out.seirv.cpu(),
+                     out.exposures_per_oa.cpu(), out.n_bus_exposures.cpu(),
+                     out.n_vaccinated_now.cpu()])
+        if device is cuda:
+            launches = dict(et.launches)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert int(runs[1][6].sum()) > 0 and int(runs[1][7].sum()) > 0
+    assert launches["cumsum_i8"] > 0
+    assert launches["citizen_phase"] == launches["run_totals_fused"] == 0
+
+
+@pytest.mark.parametrize("capacity", [20, 3])
+def test_bus_infection_counts_on_card_matches_cpu(cuda, capacity):
+    """The portable step's bus grouping on the card against the CPU, with
+    route keys over 227,759 OAs that wrap in int32 (negative keys)."""
+    from epidemicsimulator_tpu_torch.ops import segments
+
+    rng = np.random.default_rng(capacity)
+    n, n_oa = 200_003, 227_759
+    src = rng.integers(0, n_oa, 500).astype(np.int64)
+    dst = rng.integers(0, n_oa, 500).astype(np.int64)
+    pick = rng.integers(0, 500, n)
+    key = (src[pick] * n_oa + dst[pick]) & 0xFFFFFFFF
+    key = torch.from_numpy(np.where(key >= 2**31, key - 2**32, key))
+    assert (key < 0).any()
+    on_bus = torch.from_numpy(rng.random(n) < 0.6)
+    infected = on_bus & torch.from_numpy(rng.random(n) < 0.2)
+    args = ((7, 11), on_bus, key, infected, capacity)
+    got = segments.bus_infection_counts(
+        *(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args))
+    want = segments.bus_infection_counts(*args)
+    assert torch.equal(got.cpu(), want)
+    assert int(want.max()) > 0
